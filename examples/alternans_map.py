@@ -64,8 +64,6 @@ def main():
                          "model's near-refractory rate)")
     ap.add_argument("--beats", type=int, default=8)
     ap.add_argument("--stim-cols", type=int, default=4)
-    ap.add_argument("--kernel", choices=["auto", "xla", "pallas"],
-                    default="auto")
     ap.add_argument("--save-plot", default=None, metavar="PATH")
     args = ap.parse_args()
 
@@ -94,8 +92,7 @@ def main():
 
     stacked = stack_states([model.initial_state(s1=False)])
     _, movie = run_ensemble(model, stacked, n_outer, events=events,
-                            probe=lambda s: s[pot],
-                            kernel=args.kernel)
+                            probe=lambda s: s[pot])
     r = apd_map(np.asarray(movie)[0], frame_ms=dt_ms)
 
     signed = np.where(r.valid, r.apd_last - r.apd_prev, np.nan)

@@ -103,8 +103,6 @@ def main():
     ap.add_argument("--rotor", action="store_true",
                     help="live on-device rotor census (count + net "
                          "charge per outer step)")
-    ap.add_argument("--kernel", default="auto",
-                    choices=["auto", "xla", "pallas"])
     ap.add_argument("--frames", type=float, default=None,
                     help="record the large phase every N ms to "
                          "cube_large.npy for tips/dfmap quantification")
@@ -112,7 +110,7 @@ def main():
     cfg = SimConfig(
         width=args.size, height=args.size, dt=0.1, dt_per_plot=10,
         diff=1.5, duration=args.duration, ultra_slow=True,
-        rotor_probe=args.rotor, kernel=args.kernel,
+        rotor_probe=args.rotor,
     )
     cyclelengths = []
     run_small(cfg, cyclelengths, radius=max(args.size // 50, 3))

@@ -1,18 +1,15 @@
 #!/usr/bin/env python
-"""BASELINE config #5: pseudo-electrogram over a 1024x512 fibrillating
-Beeler-Reuter sheet, grid sharded over 8 chips.
+"""Pseudo-electrogram over a 1024x512 fibrillating Beeler-Reuter sheet,
+the grid sharded over every device.
 
-Spatial domain decomposition: the [1024, 512] grid is row-sharded over an
-8-device mesh.  The DEFAULT is the measured-best multi-chip path
-(docs/OPTIMIZATIONS.md §10b): explicit shard_map with wide (K-row) halos —
-one K-row ppermute pair rides ICI per OUTER step — feeding the per-shard
-fused Pallas block kernel ('auto' picks it on TPU; BR 12.6 us/substep vs
-25.4 wide-XLA vs ~45 GSPMD at 512x512 on a 1-device mesh, 3.3 at the
-8-chip shard shape).  Electrode means are masked psums.  `--narrow`
-selects the per-substep 1-row exchange path and `--gspmd` the
-XLA-inferred-collectives path, both kept as measured cross-checks.
+Spatial domain decomposition: the [1024, 512] grid is row-sharded over a
+device mesh.  The default is explicit shard_map with wide (K-row) halos:
+one K-row ppermute pair per OUTER step between neighbouring devices.
+Electrode means are masked psums.  `--narrow` selects the per-substep
+1-row exchange path and `--gspmd` the XLA-inferred-collectives path,
+both kept as cross-checks.
 
-On a single TPU chip (or CPU) run with a virtual mesh:
+Without several devices, run on a virtual CPU mesh:
 
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
       python examples/egm_sharded.py --duration 20
@@ -40,14 +37,10 @@ def main():
     ap.add_argument("--duration", type=float, default=3000.0)
     ap.add_argument("--height", type=int, default=1024)
     ap.add_argument("--width", type=int, default=512)
-    ap.add_argument("--kernel", choices=["auto", "xla", "pallas"],
-                    default="auto",
-                    help="per-shard step: 'auto' = fused block kernel on "
-                         "TPU, wide-XLA elsewhere")
     path = ap.add_mutually_exclusive_group()
     path.add_argument("--narrow", action="store_true",
                       help="per-substep 1-row halo exchange instead of "
-                           "the wide-halo default (measured ~1.5x slower)")
+                           "the wide-halo default")
     path.add_argument("--gspmd", action="store_true",
                       help="GSPMD path (XLA infers the halo collectives) "
                            "instead of explicit shard_map")
@@ -57,7 +50,6 @@ def main():
     cfg = SimConfig(
         width=args.width, height=args.height, dt=0.1, dt_per_plot=10,
         diff=1.0, duration=args.duration, cheby=True, skip=False,
-        kernel=args.kernel,
     )
     model = BeelerReuter(cfg)
     mesh = make_mesh()
@@ -69,7 +61,7 @@ def main():
     elif args.narrow:
         sim = Simulation(model, mesh=mesh)
     else:
-        # the measured-best default: wide halos + ('auto') block kernel
+        # the default: one K-row halo exchange per outer step
         sim = Simulation(model, mesh=mesh, wide_halo=True)
     sim.add_hole_to_phase_field(150, args.height // 2, 50)
     sim.add_electrode(300 + 15, args.height // 2, radius=5)

@@ -14,19 +14,13 @@ Initiation is the robust cut-the-wave protocol rather than S2 cross-field
 pacing: an S1 plane wave is advanced to mid-sheet, the lower half of
 EVERY state plane is reset to rest (cutting the wavefront and leaving
 fully recovered tissue below), and the free end curls into a rotor.
-Measured on v5e (512², dt = 0.02): one charge −1 rotor sustained for the
-full second of sim time, meandering ~70×80 cells — LR1's signature
-hypermeander, vs Fenton's circular core.
+At 512², dt = 0.02: one charge −1 rotor sustained for the full second
+of sim time, meandering ~70×80 cells — LR1's signature hypermeander, vs
+Fenton's circular core.
 
 S2 quadrant pacing at this wavelength produces only transient reentry
 (~1 extra cycle, scanned 200-450 ms at g_si 0.02/0.03) — the cut is the
 reliable protocol at 512².
-
-The default kernel is 'xla' (~50 µs/substep at 512²): every --gsi value
-bakes a new trace-time constant into the fused Pallas kernel, and the
-lr1 Mosaic compile is ~18 min (docs/OPTIMIZATIONS.md §8) — worth it for
-production runs at a fixed g_si (33.6 µs/substep, cached in .jax_cache),
-not for a parameter-scanning demo.
 """
 
 import os as _os, sys as _sys
@@ -43,10 +37,10 @@ from fib_tf_tpu.models import LuoRudy91
 from fib_tf_tpu.utils import viz
 
 
-def build_sim(size, duration, gsi, kernel, skip=False):
+def build_sim(size, duration, gsi, skip=False):
     cfg = SimConfig(
         width=size, height=size, dt=0.02, dt_per_plot=10, diff=0.809,
-        duration=duration, kernel=kernel, skip=skip,
+        duration=duration, skip=skip,
     )
     model = LuoRudy91(cfg)
     model.g_si = gsi
@@ -66,12 +60,7 @@ def main():
                          "(default: mid-sheet at CV ~2.2 cells/ms)")
     ap.add_argument("--skip", action="store_true",
                     help="multi-rate slow gates (x/d/f once per outer "
-                         "step; measured 1.34-1.47x, AP error <0.01 mV "
-                         "- docs/OPTIMIZATIONS.md 8c)")
-    ap.add_argument("--kernel", default="xla",
-                    choices=["xla", "auto", "pallas"],
-                    help="'xla' (default) avoids re-paying the ~18 min "
-                         "lr1 Mosaic compile per --gsi value")
+                         "step; AP error <0.01 mV)")
     args = ap.parse_args()
 
     n = args.size
@@ -80,8 +69,7 @@ def main():
         cut_at = round(n / 2 / 2.2)  # S1 front at mid-sheet
 
     # stage 1: S1 plane wave (the built-in 1-column stripe) to mid-sheet
-    res1 = build_sim(n, cut_at, args.gsi, args.kernel,
-                     args.skip).simulate()
+    res1 = build_sim(n, cut_at, args.gsi, args.skip).simulate()
 
     # the cut: lower half of every plane back to rest -> a free end at
     # mid-height facing fully recovered tissue
@@ -92,8 +80,7 @@ def main():
         state[k][n // 2:, :] = rest[k][n // 2:, :]
 
     # stage 2: the free end curls
-    sim = build_sim(n, args.duration, args.gsi, args.kernel,
-                    args.skip)
+    sim = build_sim(n, args.duration, args.gsi, args.skip)
     every = min(25, max(args.duration / 4, sim.model.dt_per_step * 0.02))
     res = sim.simulate(state=state, record_frames_every_ms=every)
 

@@ -63,8 +63,6 @@ def main():
                          "alternans and 1:1-capture loss")
     ap.add_argument("--beats", type=int, default=8,
                     help="pacing-train length per member (--dynamic)")
-    ap.add_argument("--kernel", choices=["auto", "xla", "pallas"],
-                    default="auto")
     ap.add_argument("--save-plot", default=None, metavar="PATH")
     args = ap.parse_args()
 
@@ -81,7 +79,7 @@ def main():
     coupling = np.linspace(args.ci_from, args.ci_to, args.members)
     r = restitution_scan(
         model, coupling_ms=coupling, bcl_ms=args.bcl, n_s1=args.n_s1,
-        tail_ms=max(600.0, args.bcl), kernel=args.kernel,
+        tail_ms=max(600.0, args.bcl),
     )
 
     print(f"{args.model} restitution: {args.members} couplings in "
@@ -112,7 +110,7 @@ def run_dynamic(args, model):
     bcl = np.linspace(args.ci_from, args.ci_to, args.members)
     r = dynamic_restitution_scan(
         model, bcl_ms=bcl, n_beats=args.beats,
-        tail_ms=max(500.0, float(bcl.max())), kernel=args.kernel,
+        tail_ms=max(500.0, float(bcl.max())),
     )
     print(f"{args.model} dynamic restitution: {args.members} rates in "
           f"[{args.ci_from:.0f}, {args.ci_to:.0f}] ms x {args.beats} "

@@ -10,8 +10,8 @@ block curls the wave into a reentrant spiral.
 
 The reference could only probe the window serially, one full simulation
 per S2 time.  Here the whole scan is one `run_ensemble` call: members
-differ only in their per-member S2 step (EnsembleEvent), so the TPU runs
-the entire window in a single vmapped scan — and the ensemble axis
+differ only in their per-member S2 step (EnsembleEvent), so the device
+runs the entire window in a single vmapped scan — and the ensemble axis
 shards over a mesh for free.
 
   python examples/s2_scan.py                     # 16 members, 512^2
@@ -109,7 +109,7 @@ def save_plot(path, s2_ms, sustained, probes, ms_per_outer):
     ax.set_xlabel("simulated time (ms)")
     ax.set_title(
         "S2 vulnerable-window scan — probe voltage per member\n"
-        "(one batched TPU program; white tick = S2 delivery)",
+        "(one batched device program; white tick = S2 delivery)",
         fontsize=10,
     )
     ax.tick_params(length=0)

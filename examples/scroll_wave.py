@@ -42,11 +42,6 @@ def main():
     ap.add_argument("--fiber-ratio", type=float, default=1.0,
                     help="cross-fiber conduction fraction (enable the "
                          "twist by setting < 1, e.g. 0.25)")
-    ap.add_argument("--kernel", default="auto",
-                    choices=["auto", "pallas", "xla"],
-                    help="step path: 'auto' picks the fused whole-volume "
-                         "Pallas kernel on TPU where profitable "
-                         "(ops/pallas_volume.py)")
     ap.add_argument("--save-cube", default=None,
                     help="save the mid-depth slice movie (npy) for "
                          "examples/playcube.py")
@@ -70,7 +65,6 @@ def main():
         fiber_ratio=args.fiber_ratio,
         events=[VolumeEvent(step=s2_step, loc="luq", z1=args.depth // 2)],
         frames_every=max(1, n_outer // 30),
-        kernel=args.kernel,
     )
 
     act = [(f > 0.1).mean() for f in frames]

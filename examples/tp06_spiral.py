@@ -18,18 +18,14 @@ curls into a rotor.
 The default diff=0.15 is MEASURED, not arbitrary: at the zoo's
 standard 0.809 the wavelength (APD90 302 ms x CV 2.22 cells/ms ~ 660
 cells) exceeds the 512 sheet and the free end escapes off the edge
-before completing a turn (active fraction -> 0 by ~500 ms, real-TPU
-runs at 0.809 and 0.3 both extinguish).  At 0.15 (CV ~ 0.96) a single
+before completing a turn (active fraction -> 0 by ~500 ms; runs at
+0.809 and 0.3 both extinguish).  At 0.15 (CV ~ 0.96) a single
 +1 rotor sustains: tracked 58/60 frames over 1500 ms, meander
 20 x 111 cells, period ~375 ms, rotor-shortened median APD 220 ms
 (vs 302 paced) with 22 ms median APD alternans and 13% discordant
 area (`tips` / `dfmap` / `apdmap` on the saved cube) — the steep-
 restitution regime the paper's breakup analysis studies.
-
-The default kernel is 'auto': with no parameter knobs baked into the
-kernel body, one Mosaic compile per grid size serves every run of this
-script (then .jax_cache).  `--cell-type m` runs the long-APD midwall
-variant (a different trace-time constant = a different kernel body).
+`--cell-type m` runs the long-APD midwall variant.
 """
 
 import os as _os, sys as _sys
@@ -46,10 +42,10 @@ from fib_tf_tpu.models import TenTusscher06
 from fib_tf_tpu.utils import viz
 
 
-def build_sim(size, duration, cell_type, kernel, diff, skip=False):
+def build_sim(size, duration, cell_type, diff, skip=False):
     cfg = SimConfig(
         width=size, height=size, dt=0.02, dt_per_plot=10, diff=diff,
-        duration=duration, kernel=kernel, skip=skip,
+        duration=duration, skip=skip,
     )
     model = TenTusscher06(cfg)
     model.cell_type = cell_type
@@ -78,8 +74,6 @@ def main():
                     help="multi-rate slow gates (f/f2/s/xr1/xs once per "
                          "outer step; 0D AP error <0.2 mV - "
                          "tests/test_tp06.py)")
-    ap.add_argument("--kernel", default="auto",
-                    choices=["auto", "xla", "pallas"])
     args = ap.parse_args()
 
     n = args.size
@@ -92,7 +86,7 @@ def main():
 
     # stage 1: S1 plane wave (the built-in 1-column stripe) toward the
     # top of the sheet
-    res1 = build_sim(n, cut_at, args.cell_type, args.kernel, args.diff,
+    res1 = build_sim(n, cut_at, args.cell_type, args.diff,
                      args.skip).simulate()
 
     # the cut: lower half of every plane back to the paper's initial
@@ -105,8 +99,8 @@ def main():
         state[k][n // 2:, :] = rest[k][n // 2:, :]
 
     # stage 2: the free end curls
-    sim = build_sim(n, args.duration, args.cell_type, args.kernel,
-                    args.diff, args.skip)
+    sim = build_sim(n, args.duration, args.cell_type, args.diff,
+                    args.skip)
     every = min(25, max(args.duration / 4, sim.model.dt_per_step * 0.02))
     res = sim.simulate(state=state, record_frames_every_ms=every)
 

@@ -46,7 +46,7 @@ from fib_tf_tpu.utils.apd import apd_map, plot_apd_map
 
 
 def run(width=256, height=4, bcl=800.0, beats=3, bands=(0.25, 0.60),
-        stim_cols=4, kernel="auto"):
+        stim_cols=4):
     cfg = SimConfig(width=width, height=height, dt=0.02, diff=0.809,
                     duration=10, cell_type="transmural",
                     cell_type_bands=tuple(bands))
@@ -64,7 +64,7 @@ def run(width=256, height=4, bcl=800.0, beats=3, bands=(0.25, 0.60),
 
     stacked = stack_states([model.initial_state(s1=False)])
     _, movie = run_ensemble(model, stacked, n_outer, events=events,
-                            probe=lambda s: s["V"], kernel=kernel)
+                            probe=lambda s: s["V"])
     return apd_map(np.asarray(movie)[0], frame_ms=dt_ms), cfg
 
 
@@ -92,14 +92,12 @@ def main():
     ap.add_argument("--beats", type=int, default=3)
     ap.add_argument("--bands", default="0.25,0.60",
                     help="endo|M and M|epi border column fractions")
-    ap.add_argument("--kernel", choices=["auto", "xla", "pallas"],
-                    default="auto")
     ap.add_argument("--save-plot", default=None, metavar="PATH")
     args = ap.parse_args()
 
     bands = tuple(float(v) for v in args.bands.split(","))
     r, cfg = run(width=args.width, height=args.height, bcl=args.bcl,
-                 beats=args.beats, bands=bands, kernel=args.kernel)
+                 beats=args.beats, bands=bands)
     if not r.valid.any():
         print("no pixel completed two beats — lengthen --bcl")
         return

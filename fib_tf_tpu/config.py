@@ -51,9 +51,9 @@ class SimConfig:
     fast_currents: bool = True  # share exp(0.04V) across iK1/ix1 (br.py:153-158)
     # Fold the Rush-Larsen multiplier expm1(-dt/tau(V)) into the
     # definition-time Chebyshev fit (dt is a compile-time constant), so the
-    # per-substep gate update needs no divide or exponential at all — a
-    # TPU-native extension of the reference's tau-fit scheme with the same
-    # order of fit error.  Set False for the reference-faithful tau fit.
+    # per-substep gate update needs no divide or exponential at all — an
+    # extension of the reference's tau-fit scheme with the same order of
+    # fit error.  Set False for the reference-faithful tau fit.
     cheby_fold: bool = True
     # Also Chebyshev-fit the V-only membrane currents (whole iK1, and the
     # ix1 voltage prefactor), reusing the gate fits' term chain — the last
@@ -61,8 +61,7 @@ class SimConfig:
     cheby_currents: bool = True
     # Hybrid Chebyshev for Courtemanche: fit the 24 smooth intermediates
     # (deg 12), keep the branchy h/j rates direct.  Accurate (0.56 mV max
-    # over an AP) but measured ~10% SLOWER than direct evaluation on v5e —
-    # TPU transcendentals are cheap — so opt-in, not default.  Note the
+    # over an AP); opt-in, not default.  Note the
     # plain `cheby` flag is ignored by Courtemanche, as in the reference
     # (its court Chebyshev path was dead code, court.py:463-477).
     court_cheby: bool = False
@@ -109,9 +108,9 @@ class SimConfig:
     # class hERG blocker), {"g_CaL": 0.5} = L-type Ca block (verapamil
     # class).  Pass a dict; it is normalized to a sorted tuple of
     # (name, factor) pairs so the config stays hashable.  Factors are
-    # TRACE-TIME constants folded into the compiled step (zero runtime
-    # cost on every path — XLA, the fused Mosaic kernels, meshes,
-    # ensembles); a factor of exactly 1.0 is bitwise the unscaled model.
+    # TRACE-TIME constants folded into the compiled step (no extra
+    # operations on any path — single device, meshes, ensembles); a
+    # factor of exactly 1.0 is bitwise the unscaled model.
     # Valid names are per-model (IonicModel.SCALE_PARAMS — e.g. tp06's
     # CiPA panel g_Na/g_CaL/g_Kr/g_Ks/g_to/g_K1/...); the model raises
     # on unknown channels.  Composes multiplicatively with per-pixel
@@ -138,21 +137,6 @@ class SimConfig:
 
     # -- engine tuning (new; no reference equivalent) --------------------------
     chunk_ms: Optional[float] = None  # host-loop granularity; default = dt_per_plot*dt
-    # step implementation: 'auto' picks the fused Pallas kernel where it is
-    # profitable (small-state models, whole grid VMEM-resident) and the
-    # XLA scan path elsewhere; 'xla' / 'pallas' force one.
-    kernel: str = "auto"
-    # Mosaic compile-cliff knob: split each fused-kernel outer step into
-    # chained launches of at most this many substeps (one kernel compiled
-    # per distinct body — models/base.substep_fns).  Mosaic compile time
-    # grows superlinearly in body size (docs/OPTIMIZATIONS.md §8d), so
-    # the large models trade a few extra HBM round trips per outer step
-    # for a much smaller one-time compile.  None = whole outer step per
-    # launch (the measured-fastest steady state for fenton/br/court).
-    # Applies to the whole-grid and per-shard block kernels; the tiled
-    # kernel's temporal halo is sized for the full group and cannot
-    # split.
-    substeps_per_launch: Optional[int] = None
 
     # -- parallelism (new; reference is single-device, SURVEY.md §2) ----------
     # When set, Simulation builds a device mesh of this shape and shards
@@ -160,15 +144,13 @@ class SimConfig:
     mesh_shape: Optional[Tuple[int, ...]] = None
     mesh_axes: Tuple[str, ...] = ("x", "y")
     # Which sharded execution path mesh_shape selects:
-    #   'auto'  — the measured-best path: explicit shard_map with wide
-    #             (K-row) halos + the per-shard fused block kernel when
-    #             the model/grid qualify (BR 512x512 on a 1-device TPU
-    #             mesh: 12.6 us/substep vs 25.4 wide-XLA vs ~45 GSPMD-XLA,
-    #             docs/OPTIMIZATIONS.md §10b), falling back to GSPMD with
-    #             a warning naming the disqualifier;
+    #   'auto'  — explicit shard_map with wide (K-row) halos, one
+    #             exchange per outer step, when the model/grid qualify,
+    #             falling back to GSPMD with a warning naming the
+    #             disqualifier;
     #   'spmd'  — force the shard_map wide-halo path (raise if it can't);
     #   'gspmd' — force the GSPMD NamedSharding path (XLA infers the halo
-    #             collectives; Pallas kernels unavailable there).
+    #             collectives).
     mesh_mode: str = "auto"
 
     def __post_init__(self):
@@ -178,11 +160,6 @@ class SimConfig:
             raise ValueError("dt must be positive")
         if self.duration < 0:
             raise ValueError("duration must be non-negative")
-        if self.kernel not in ("auto", "xla", "pallas"):
-            raise ValueError(f"unsupported kernel: {self.kernel}")
-        if (self.substeps_per_launch is not None
-                and self.substeps_per_launch < 1):
-            raise ValueError("substeps_per_launch must be >= 1")
         if self.cell_type not in ("epi", "endo", "m", "transmural"):
             raise ValueError(
                 f"unsupported cell_type: {self.cell_type!r} (epi / endo "

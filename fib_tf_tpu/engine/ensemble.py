@@ -1,6 +1,6 @@
 """Batched (ensemble) simulation — the data-parallel axis.
 
-No reference equivalent (it ran one sheet per process); on TPU an
+No reference equivalent (it ran one sheet per process); here an
 ensemble of independent simulations — parameter sweeps, S2-timing scans,
 initial-condition perturbations — is `vmap` over a leading member axis,
 and sharding that axis over a mesh is embarrassingly-parallel data
@@ -23,6 +23,7 @@ import numpy as np
 
 from fib_tf_tpu.models.base import Geometry, IonicModel, grid_geometry
 from fib_tf_tpu.ops import stencil
+from fib_tf_tpu.utils import cache
 
 
 def stack_states(states) -> Dict[str, np.ndarray]:
@@ -61,66 +62,6 @@ class EnsembleEvent:
         )
 
 
-def _ensemble_use_kernel(model, kernel: str, per_member_phase: bool,
-                         mesh=None) -> bool:
-    """Member-wise whole-grid Pallas kernel under vmap (members become a
-    Mosaic grid axis, each member's planes VMEM-resident for the whole
-    substep group).  Measured v5e, fenton 16 x 128**2:
-    0.37 us/substep/member (44.1 G cell-updates/s) vs 1.24 (13.2 G) for
-    the vmapped-XLA path — 3.3x, matching the single-sheet whole-grid
-    kernel's sustained rate.  'auto' picks it on TPU whenever the
-    single-run engine would (aligned or padded grid, state within the
-    whole-grid VMEM budget, no per-member phase — the kernel bakes the
-    phase in at trace time).  With a mesh the scan runs inside shard_map
-    over the member axis (zero collectives — members are independent), so
-    the per-shard vmapped kernel still engages; run_ensemble pads the
-    batch to a shard multiple with dummy members, so any n works."""
-    if getattr(model.cfg, "adaptive_dv", None) is not None:
-        # same rule as Simulation._use_pallas: the step-doubling
-        # refinement is a data-dependent lax.cond the fused Mosaic
-        # kernels cannot trace (they fuse fixed-dt substep groups)
-        if kernel == "pallas":
-            raise ValueError(
-                "adaptive_dv runs on the XLA path (the fused kernels "
-                "trace fixed-dt substeps); drop kernel='pallas' or "
-                "adaptive_dv"
-            )
-        return False
-    if kernel == "xla":
-        return False
-    if per_member_phase:
-        if kernel == "pallas":
-            raise ValueError(
-                "kernel='pallas' does not support per-member phase "
-                "fields (the kernel bakes the phase in as a constant); "
-                "use a shared [H, W] phase or kernel='xla'"
-            )
-        return False
-    if kernel == "pallas":
-        return True
-    if kernel != "auto":
-        raise ValueError(f"unknown ensemble kernel {kernel!r}")
-    if jax.default_backend() != "tpu":
-        return False
-    if model.name not in ("fenton", "br", "court", "court_ultra", "ms",
-                          "lr1", "tp06"):
-        # (tp06 measured 5.85 vs 9.14 us/substep/member vmapped-XLA at
-        # 16 x 128² — the member-axis kernel compiles fine even though
-        # the per-shard BLOCK kernel diverges, OPTIMIZATIONS §8/§13)
-        return False
-    if getattr(model.cfg, "table", False):
-        return False
-    from fib_tf_tpu.ops.pallas_step import padded_shape
-
-    h, w = model.cfg.height, model.cfg.width
-    ph, pw = padded_shape(h, w) or (h, w)
-    n_planes = len(model.state_keys())
-    state_mb = ph * pw * 4 * n_planes / 2**20
-    from fib_tf_tpu.engine.simulation import Simulation
-
-    return state_mb <= Simulation.WHOLE_GRID_STATE_MB_MAX
-
-
 def run_ensemble(
     model: IonicModel,
     stacked_state: Dict[str, np.ndarray],
@@ -129,7 +70,6 @@ def run_ensemble(
     mesh=None,
     events: Sequence[EnsembleEvent] = (),
     probe: Optional[Callable] = None,
-    kernel: str = "auto",
 ):
     """Advance every ensemble member `n_outer` outer steps.
 
@@ -139,21 +79,12 @@ def run_ensemble(
     - `probe`: callable state -> scalar or dict of scalars sampled every
       outer step (default model.probe — the engine's probe stream
       convention); dict probes return dict-of-[n, n_outer] streams.
-    - `kernel`: 'auto' (member-wise whole-grid Pallas kernel on TPU,
-      measured 3.3x over vmapped XLA — see _ensemble_use_kernel),
-      'pallas' to force, 'xla' to opt out.  Caveat: on an unaligned grid
-      the kernel runs on (8,128)-padded planes; real cells never read the
-      pad region and the returned state is cropped, but a CUSTOM probe
-      that reduces over whole planes (e.g. `s['u'].max()`) would see the
-      evolving pad values — full-plane probes on unaligned grids should
-      pass kernel='xla'.
 
     Returns (final stacked state, probe streams [n, n_outer] or dict).
-    With `mesh`, the member axis is sharded over the mesh's first axis;
-    when the kernel engages the scan runs inside shard_map (per-shard
-    vmapped kernel, zero collectives), otherwise GSPMD partitions the
-    vmapped-XLA scan.
+    With `mesh`, the member axis is sharded over the mesh's first axis
+    and GSPMD partitions the vmapped scan.
     """
+    cache.enable()
     probe = probe or model.probe
     n_members = next(iter(stacked_state.values())).shape[0]
 
@@ -168,7 +99,6 @@ def run_ensemble(
     pad_n = 0
     if mesh is not None:
         pad_n = (-n_members) % mesh.devices.shape[0]
-    n_total = n_members + pad_n
 
     def _pad_members(a):
         reps = (pad_n,) + (1,) * (np.asarray(a).ndim - 1)
@@ -193,17 +123,6 @@ def run_ensemble(
     ev_steps = [jnp.asarray(t) for t in ev_steps]
     pot_key = model.pot_key
 
-    use_kernel = _ensemble_use_kernel(model, kernel, per_member_phase, mesh)
-    h, w = model.cfg.height, model.cfg.width
-    if use_kernel and kernel == "auto" and probe is not model.probe:
-        from fib_tf_tpu.ops.pallas_step import padded_shape
-
-        if padded_shape(h, w) is not None:
-            # a custom probe may reduce over whole planes; on a padded
-            # grid it would silently see the evolving pad region — keep
-            # 'auto' safe and let kernel='pallas' opt back in
-            use_kernel = False
-    pad_hw = None
     if per_member_phase:
         # grid_geometry precomputes the padded phase on the host, which a
         # vmap-traced per-member phase can't do — pad inside the op instead
@@ -215,17 +134,6 @@ def run_ensemble(
 
         vstep = jax.vmap(lambda s, ph: model.step(s, member_geom(ph)))
         step_members = lambda s: vstep(s, phase)  # noqa: E731
-    elif use_kernel:
-        from fib_tf_tpu.ops.pallas_step import make_pallas_step, padded_shape
-
-        pad_hw = padded_shape(h, w)
-        kstep = make_pallas_step(
-            model,
-            phase=np.asarray(phase) if phase is not None else None,
-            pad=pad_hw is not None,
-            substeps_per_launch=model.cfg.substeps_per_launch,
-        )
-        step_members = jax.vmap(kstep)
     else:
         geom = grid_geometry(phase)
         step_members = jax.vmap(lambda s: model.step(s, geom))
@@ -236,8 +144,8 @@ def run_ensemble(
     def _transpose(p):
         return jnp.moveaxis(p, 0, 1)  # [n_outer, n] -> [n, n_outer]
 
-    # events are explicit args (not closure constants) so the shard_map
-    # path below can shard the per-member step/mask arrays with the batch
+    # events are explicit args (not closure constants) so the per-member
+    # step/mask arrays shard with the batch
     def scan_chunk(s, *ev_args):
         steps, masks = ev_args[:n_ev], ev_args[n_ev:]
 
@@ -262,57 +170,14 @@ def run_ensemble(
         return final, jax.tree.map(_transpose, probes)
 
     state = {k: jnp.asarray(v) for k, v in stacked_state.items()}
-    if pad_hw is not None:
-        # the pad=True kernel step expects (8,128)-aligned planes; pad the
-        # member batch once before the scan (edge values keep the
-        # never-read pad region physiological) and crop once after —
-        # probes/events index true coordinates, unaffected by the
-        # bottom/right pad
-        hp, wp = pad_hw
-        state = {
-            k: jnp.pad(v, ((0, 0), (0, hp - h), (0, wp - w)), mode="edge")
-            for k, v in state.items()
-        }
-        ev_masks = [
-            jnp.pad(m, ((0, 0),) * (m.ndim - 2)
-                    + ((0, hp - h), (0, wp - w)), mode="edge")
-            for m in ev_masks
-        ]
-    # not donated: donation forces the scan result back into the input
-    # buffers, inserting a per-iteration state copy (engine/simulation.py
-    # _chunk_fn has the v5e measurements); the batch stays live one extra
-    # call, which is just HBM footprint
-    if mesh is not None and use_kernel:
-        # run the whole scan inside shard_map over the member axis: each
-        # shard advances its own members with the vmapped Pallas kernel
-        # (no collectives — ensemble members are independent), sidestepping
-        # GSPMD's inability to partition an opaque pallas_call
+    if mesh is not None:
         from jax.sharding import NamedSharding, PartitionSpec as P
 
-        ax = mesh.axis_names[0]
-        member = P(ax)
-        mask_specs = tuple(
-            member if m.ndim == 3 else P() for m in ev_masks
-        )
-        fn = jax.shard_map(
-            scan_chunk,
-            mesh=mesh,
-            in_specs=(member, *(member,) * n_ev, *mask_specs),
-            out_specs=(member, member),
-            check_vma=False,
-        )
-        sh = NamedSharding(mesh, member)
+        sh = NamedSharding(mesh, P(mesh.axis_names[0]))
         state = {k: jax.device_put(v, sh) for k, v in state.items()}
-        chunk = jax.jit(fn)
-    else:
-        if mesh is not None:
-            from jax.sharding import NamedSharding, PartitionSpec as P
-
-            sh = NamedSharding(mesh, P(mesh.axis_names[0]))
-            state = {k: jax.device_put(v, sh) for k, v in state.items()}
-        chunk = jax.jit(scan_chunk)
+    chunk = jax.jit(scan_chunk)
     final, probes = chunk(state, *ev_steps, *ev_masks)
-    final = {k: np.asarray(v)[:n_members, :h, :w] for k, v in final.items()}
+    final = {k: np.asarray(v)[:n_members] for k, v in final.items()}
     if isinstance(probes, dict):
         return final, {k: np.asarray(v)[:n_members] for k, v in probes.items()}
     return final, np.asarray(probes)[:n_members]
@@ -326,7 +191,6 @@ def s2_scan(
     phase: Optional[np.ndarray] = None,
     mesh=None,
     activity_threshold: float = 0.1,
-    kernel: str = "auto",
 ):
     """Vulnerable-window scan: one S1 wave (model.initial_state(s1=True)),
     then one S2 stimulus per member at `s2_steps[i]` (outer steps), run to
@@ -342,7 +206,6 @@ def s2_scan(
     ev = EnsembleEvent(step=s2_steps, loc=s2_loc)
     final, probes = run_ensemble(
         model, stacked, n_outer, phase=phase, mesh=mesh, events=[ev],
-        kernel=kernel,
     )
     img = (final[model.pot_key] - model.min_v) / (model.max_v - model.min_v)
     if phase is not None:

@@ -8,7 +8,7 @@ process per S2 coupling interval, like its serial vulnerable-window
 scans.  Here every coupling interval is an ensemble member: an S1 pacing
 train is fired at shared steps, the S2 at a per-member step
 (`EnsembleEvent`), and the whole protocol is a single compiled scan
-(vmapped whole-grid Pallas kernel on TPU — see engine/ensemble.py).
+(engine/ensemble.py).
 
 APD/DI extraction is host-side post-processing of the per-member probe
 streams, reusing the APD-at-level convention of the published-physiology
@@ -142,7 +142,6 @@ def dynamic_restitution_scan(
     pixel: Optional[Tuple[int, int]] = None,
     level: float = 0.9,
     min_apd_ms: float = 20.0,
-    kernel: str = "auto",
     mesh=None,
 ) -> DynamicRestitutionResult:
     """Dynamic (steady-state-pacing) restitution: one PACING RATE per
@@ -196,7 +195,7 @@ def dynamic_restitution_scan(
         model, stacked, int(n_outer),
         events=events,
         probe=lambda s: s[pot_key][py, px],
-        kernel=kernel, mesh=mesh,
+        mesh=mesh,
     )
     traces = np.asarray(traces)
 
@@ -282,7 +281,6 @@ def cv_restitution_scan(
     stim_cols: int = 4,
     sites: Optional[Tuple[int, int]] = None,
     level: float = 0.9,
-    kernel: str = "auto",
     mesh=None,
 ) -> CVRestitutionResult:
     """Conduction-velocity restitution: CV of a premature (S2) wave vs
@@ -347,7 +345,7 @@ def cv_restitution_scan(
         events=events,
         probe=lambda s: jnp.stack([s[pot_key][y, x_a],
                                    s[pot_key][y, x_b]]),
-        kernel=kernel, mesh=mesh,
+        mesh=mesh,
     )
     traces = np.asarray(traces)  # [n, n_outer, 2]
 
@@ -408,7 +406,6 @@ def restitution_scan(
     pixel: Optional[Tuple[int, int]] = None,
     level: float = 0.9,
     min_apd_ms: float = 20.0,
-    kernel: str = "auto",
     mesh=None,
 ) -> RestitutionResult:
     """Run the S1-S2 restitution protocol, one member per S2 coupling.
@@ -464,7 +461,7 @@ def restitution_scan(
         model, stacked, int(n_outer),
         events=events,
         probe=lambda s: s[pot_key][py, px],
-        kernel=kernel, mesh=mesh,
+        mesh=mesh,
     )
     traces, control = np.asarray(traces[:n]), np.asarray(traces[n])
 

@@ -9,13 +9,8 @@ model zoo reused UNCHANGED — ionic math is elementwise, and the two
 spatial operators come from the injected 3D `Geometry`
 (models/base.volume_geometry, ops/stencil3d).
 
-Kernels: volumes run the fused Pallas VOLUME kernel by default on TPU
-(`_use_volume_kernel`; ops/pallas_volume.py — [D*H, W]-flattened with
-slice-edge masks, measured 2.5-3.7x over XLA for fenton/br, with the
-row-tiled variant past the whole-volume compile cap and court staying
-XLA — docs/OPTIMIZATIONS.md §14).  Scaling: with a `mesh`, the z axis is
-sharded — GSPMD (one ghost slice each way as XLA collectives) or the
-wide-halo shard_map path feeding the per-shard volume kernel
+Scaling: with a `mesh`, the z axis is sharded — GSPMD (one ghost slice
+each way as XLA collectives) or the wide-halo shard_map path
 (parallel/volume_spmd.py), with `halo_k` sub-cadence for shallow shards.
 """
 
@@ -30,6 +25,7 @@ import numpy as np
 
 from fib_tf_tpu.models.base import IonicModel, volume_geometry
 from fib_tf_tpu.ops import stencil3d
+from fib_tf_tpu.utils import cache
 
 State = Dict[str, jnp.ndarray]
 
@@ -73,170 +69,6 @@ class VolumeEvent:
         )
 
 
-# VMEM envelope for whole-volume kernel residency — same measured cutover
-# as the 2D engine's whole-grid kernel (Simulation.WHOLE_GRID_STATE_MB_MAX)
-VOLUME_KERNEL_STATE_MB_MAX = 32.0
-
-# Mosaic compile time for the flat volume kernel grows ~quadratically in
-# the (8, 128) tile count of the flattened [D*H, W] sheet (measured on
-# v5e, fenton body: 512 tiles -> 158 s, 768 -> 399 s, 1024 -> >590 s,
-# 2048 -> >1 h; shift distance and aspect ratio don't matter).  'auto'
-# caps the kernel at 768 tiles (= 786k cells) so the one-time compile
-# stays in the same few-minute band as the 2D kernels; kernel='pallas'
-# overrides for users willing to pay a documented long compile once
-# (.jax_cache makes reruns free).
-VOLUME_KERNEL_CELLS_MAX = 768 * 8 * 128
-
-
-# VMEM budget for the tiled volume kernel's per-tile blocks (scratch +
-# blocked outputs).  Mosaic's scoped allocation adds ~3.5x the raw block
-# bytes in temporaries (measured: BR 8x256x512 tile 128 = 34 MB raw ->
-# 120.65 MB scoped, over the 110 MB limit; fenton tile 128 = 18 MB raw
-# compiles and runs), so the raw budget stays ~24 MB
-TILED_VOLUME_BLOCK_MB_MAX = 24.0
-
-
-def pick_volume_tile_rows(model: IonicModel, depth: int) -> Optional[int]:
-    """Largest valid `tile_rows` for ops.pallas_volume.
-    make_tiled_volume_step, or None.  Valid = multiple of 8 dividing H
-    with H >= tile_rows + 2K, the per-tile flattened block within the
-    whole-volume compile band (VOLUME_KERNEL_CELLS_MAX — compile cost is
-    set by the BLOCK program, the grid just repeats it), and the VMEM
-    blocks within budget.  Largest wins: the temporal-halo redundancy is
-    (tile_rows + 2K) / tile_rows of the HBM reads."""
-    from fib_tf_tpu.ops.pallas_tiled import halo_rows
-
-    cfg = model.cfg
-    h, w = cfg.height, cfg.width
-    if h % 8 != 0 or w % 128 != 0:
-        return None
-    k = halo_rows(model.dt_per_step)
-    n = len(model.state_keys())
-    for tile_rows in range(h - h % 8, 0, -8):
-        if h % tile_rows != 0:
-            continue
-        ext_h = tile_rows + 2 * k
-        if h < ext_h:
-            continue
-        if depth * ext_h * w > VOLUME_KERNEL_CELLS_MAX:
-            continue
-        block_mb = (
-            n * depth * (ext_h + tile_rows) * w * 4 / 2 ** 20
-        )
-        if block_mb > TILED_VOLUME_BLOCK_MB_MAX:
-            continue
-        return tile_rows
-    return None
-
-
-def _use_volume_kernel(model: IonicModel, depth: int, mesh, kernel: str,
-                       full_fiber: bool = False) -> Optional[str]:
-    """Kernel selection for run_volume, mirroring Simulation._use_pallas:
-    'pallas' forces the fused whole-volume kernel (rejecting un-lowerable
-    combinations up front), 'auto' picks the profitable fused form on
-    TPU — 'whole' (VMEM-resident whole volume) within the compile/VMEM
-    caps, 'tiled' (row-tiled temporal blocking) past them for the
-    HBM-bound families.  Returns 'whole' | 'tiled' | None."""
-    if kernel not in ("auto", "pallas", "xla"):
-        raise ValueError(f"kernel must be auto|pallas|xla, got {kernel!r}")
-    if kernel == "xla":
-        return None
-    if full_fiber:
-        if kernel == "pallas":
-            raise ValueError(
-                "full 3x3 fiber tensors (fiber_elevation) run on the "
-                "XLA path — the fused volume kernel implements the "
-                "separable in-plane-tensor + dz_ratio form only"
-            )
-        return None
-    cfg = model.cfg
-    if mesh is not None:
-        if kernel == "pallas":
-            raise ValueError(
-                "the fused volume kernel is single-chip (GSPMD cannot "
-                "partition pallas_call); drop mesh or kernel='pallas'"
-            )
-        return None
-    if cfg.adaptive_dv is not None:
-        if kernel == "pallas":
-            raise ValueError(
-                "adaptive_dv runs on the XLA path (the fused kernels "
-                "trace fixed-dt substeps); drop kernel='pallas' or "
-                "adaptive_dv"
-            )
-        return None
-    on_tpu = jax.default_backend() == "tpu"
-    table = bool(getattr(cfg, "table", False))
-    if kernel == "pallas":
-        if on_tpu and table and model.name in ("court", "court_ultra"):
-            raise ValueError(
-                "table-mode gathers don't lower in Mosaic; use "
-                "kernel='xla' or drop table=True"
-            )
-        return "whole"
-    # auto: measured profitable on TPU within the VMEM envelope (see
-    # docs/OPTIMIZATIONS.md §14 for the volume measurements); unaligned
-    # (H, W) run on padded planes, sized by the PADDED shape
-    if not on_tpu or table:
-        return None
-    if model.name not in ("fenton", "br", "court", "court_ultra", "ms"):
-        return None
-    hp = -(-cfg.height // 8) * 8
-    wp = -(-cfg.width // 128) * 128
-    state_mb = len(model.state_keys()) * depth * hp * wp * 4 / 2 ** 20
-    cells = depth * hp * wp
-    if (state_mb <= VOLUME_KERNEL_STATE_MB_MAX
-            and cells <= VOLUME_KERNEL_CELLS_MAX):
-        return "whole"
-    # past the whole-volume caps: row-tiled temporal blocking, for the
-    # families where the 2D measurements show tiling beats XLA
-    # (HBM-bound fenton/br/ms; compute-bound court loses the halo
-    # recompute, OPTIMIZATIONS §8c — court stays XLA here too)
-    if model.name not in ("fenton", "br", "ms"):
-        return None
-    if pick_volume_tile_rows(model, depth) is None:
-        return None
-    return "tiled"
-
-
-def _use_shard_kernel(model: IonicModel, depth: int, n_shards: int,
-                      kernel: str, halo_k: int) -> bool:
-    """Kernel selection for the wide-halo shard_map volume path: does
-    the per-shard substep group run in the fused volume block kernel
-    (ops/pallas_volume.make_volume_block_kernel)?"""
-    if kernel == "xla":
-        return False
-    cfg = model.cfg
-    on_tpu = jax.default_backend() == "tpu"
-    aligned = cfg.width % 128 == 0 and cfg.height % 8 == 0
-    table = bool(getattr(cfg, "table", False))
-    if kernel == "pallas":
-        if on_tpu:
-            if table and model.name in ("court", "court_ultra"):
-                raise ValueError(
-                    "table-mode gathers don't lower in Mosaic; use "
-                    "kernel='xla' or drop table=True"
-                )
-            if not aligned:
-                raise ValueError(
-                    f"{cfg.width}x{cfg.height} is not (128, 8)-aligned; "
-                    "the volume block kernel needs aligned (H, W)"
-                )
-        return True
-    if not on_tpu or not aligned or table:
-        return False
-    if model.name not in ("fenton", "br", "court", "court_ultra", "ms"):
-        return False
-    ext_d = depth // n_shards + 2 * halo_k
-    state_mb = (
-        len(model.state_keys()) * ext_d * cfg.height * cfg.width * 4
-        / 2 ** 20
-    )
-    cells = ext_d * cfg.height * cfg.width
-    return (state_mb <= VOLUME_KERNEL_STATE_MB_MAX
-            and cells <= VOLUME_KERNEL_CELLS_MAX)
-
-
 def run_volume(
     model: IonicModel,
     depth: int,
@@ -257,7 +89,6 @@ def run_volume(
     rotor_tau_ms: float = 10.0,
     rotor_v_star: float = 0.5,
     electrodes: Sequence[tuple] = (),
-    kernel: str = "auto",
     wide_halo: bool = False,
     halo_k: Optional[int] = None,
 ):
@@ -281,17 +112,15 @@ def run_volume(
       in-plane-tensor + dz_ratio model cannot represent the dxz/dyz
       coupling).  Needs fiber_ratio < 1 and leaves dz_ratio at 1.0
       (dzz comes from the tensor; at e = 0 it equals fiber_ratio).
-      Runs on the XLA and GSPMD mesh paths (the fused kernels and
-      wide_halo implement the separable form only).
+      Runs unsharded and on the GSPMD mesh path (wide_halo implements
+      the separable form only).
     - `mesh`: shard the z axis over the mesh's first axis (GSPMD; the
       halo is one z-slice each way).
     - `wide_halo` (needs `mesh`): switch from GSPMD to the explicit
       shard_map schedule (parallel/volume_spmd.py) — K = dt_per_step
-      ghost z-slices ride ICI ONCE per outer step (vs one slice per
-      substep), and the fused substep group runs on the extended block;
-      with `kernel` 'auto'/'pallas' the group runs VMEM-resident in the
-      per-shard volume block kernel — the 3D analog of the 2D engine's
-      best sharded configuration (OPTIMIZATIONS §10b).  Needs depth
+      ghost z-slices are exchanged ONCE per outer step (vs one slice per
+      substep), and the fused substep group runs on the extended block —
+      the 3D analog of the 2D engine's wide-halo path.  Needs depth
       divisible by the mesh size and >= K slices per shard; the default
       probe only (custom `probe` callables see global state, which a
       shard_map body does not have).
@@ -300,7 +129,7 @@ def run_volume(
       exchanges halo_k ghost slices dt_per_step/halo_k times per outer
       step instead — shards need only halo_k slices each (e.g. fenton's
       K = 10 needs depth >= 10 x n_shards, but halo_k=2 runs depth 16
-      on 8 chips) and the fused blocks shrink, for more but smaller ICI
+      on 8 devices) and the fused blocks shrink, for more but smaller
       messages (same total bytes).  Needs uniform substeps (fenton, ms,
       BR without skip — not BR skip / Courtemanche).
     - `events`: VolumeEvents fired inside the scan.
@@ -320,9 +149,8 @@ def run_volume(
       reference's 2D Gaussian-mask electrogram (egm.py:5-12): a true
       far-field potential rather than a local masked mean.  With
       electrodes, `probes` is a dict with an `'ecg'` stream of shape
-      `[n_outer, n_electrodes]`.  Works on every path: XLA, fused-kernel
-      (sampled on the true-size crop of padded planes), GSPMD mesh, and
-      the z-sharded `wide_halo` shard_map path (each shard evaluates the
+      `[n_outer, n_electrodes]`.  Works on every path: unsharded, GSPMD
+      mesh, and the z-sharded `wide_halo` shard_map path (each shard evaluates the
       source term over a one-ghost-slice extension and the electrode
       sums are psums of local partials — r4, parity with the 2D engine's
       sharded ECG).
@@ -335,19 +163,6 @@ def run_volume(
       the per-slice winding is z-elementwise, so a z-sharded mesh needs
       no extra collectives.  With `rotor_probe`, `probes` is a dict
       {'v': [n_outer], 'rotors': [n_outer, D, 2]}.
-    - `kernel`: 'auto' | 'pallas' | 'xla'.  'auto' picks the fused
-      whole-volume Pallas kernel (ops/pallas_volume.py) on TPU when the
-      volume is unsharded, the state fits the whole-grid VMEM envelope,
-      and the volume is small enough that the one-time Mosaic compile
-      stays in the 2D kernels' few-minute band (VOLUME_KERNEL_CELLS_MAX
-      — compile grows ~quadratically in flattened tile count); 'pallas'
-      forces it past the caps (CPU runs interpreter mode); 'xla' forces
-      the plain path.  Unaligned (H, W) run on planes padded to the
-      (8, 128) tile with true-edge masking (probes/frames/final state
-      are cropped back; a CUSTOM probe on an unaligned grid stays on
-      XLA under 'auto' since it would see the pad region).  The kernel
-      path composes with phase fields, dz_ratio, fiber twist, events,
-      and both probes (only `model.step` moves inside the kernel).
 
     Returns (final state, probes, frames `[n_frames, D, H, W]` or
     None).  `probes` is the `[n_outer]` potential stream, or — with
@@ -365,6 +180,7 @@ def run_volume(
     `allow_unstable_dt=True` (e.g. a z-uniform volume never excites the
     z modes).
     """
+    cache.enable()
     if depth < 3:
         raise ValueError(
             "run_volume needs depth >= 3 (the SYMMETRIC face rewrite "
@@ -426,13 +242,12 @@ def run_volume(
     if state is None:
         state = volume_state(model, depth)
     geom = volume_geometry(phase, dz_ratio=dz_ratio, fiber=fiber)
-    spmd_kernel = False
     if wide_halo:
         if mesh is None:
             raise ValueError("wide_halo needs a mesh (z-sharded volume)")
         if model.cfg.adaptive_dv is not None:
             raise ValueError(
-                "adaptive_dv is single-chip/XLA-path only; drop "
+                "adaptive_dv is single-chip/GSPMD only; drop "
                 "wide_halo or adaptive_dv"
             )
         if probe is not None:
@@ -445,77 +260,26 @@ def run_volume(
             check_volume_shards, resolve_halo_k,
         )
 
-        n_shards = int(mesh.devices.shape[0])
-        k_resolved = resolve_halo_k(model, halo_k)
-        check_volume_shards(depth, n_shards, k_resolved)
-        spmd_kernel = _use_shard_kernel(model, depth, n_shards, kernel,
-                                        k_resolved)
-        step_fn = None
-    elif (mode := _use_volume_kernel(model, depth, mesh, kernel,
-                                     full_fiber=full_fiber)):
-        from fib_tf_tpu.ops.pallas_step import padded_shape
-        from fib_tf_tpu.ops.pallas_volume import (
-            make_pallas_volume_step, make_tiled_volume_step,
-        )
-
-        if mode == "tiled":
-            # past the whole-volume compile/VMEM caps: row-tiled
-            # temporal blocking (aligned grids only — selection
-            # guarantees it)
-            step_fn = make_tiled_volume_step(
-                model, depth, pick_volume_tile_rows(model, depth),
-                phase=phase, dz_ratio=dz_ratio, fiber=fiber,
-            )
-        elif (probe is not None and kernel == "auto"
-                and padded_shape(model.cfg.height, model.cfg.width)
-                is not None):
-            # custom probe callables would see the pad region's garbage;
-            # under 'auto' an unaligned grid with a custom probe stays on
-            # XLA (the 2D engine's rule) — kernel='pallas' overrides,
-            # with the probe seeing padded planes
-            step_fn = lambda s: model.step(s, geom)
-        else:
-            step_fn = make_pallas_volume_step(
-                model, depth, phase=phase, dz_ratio=dz_ratio,
-                fiber=fiber, pad=True,  # no-op on aligned grids
-            )
-    else:
-        step_fn = lambda s: model.step(s, geom)
-    padded_hw = getattr(step_fn, "padded_hw", None)
+        check_volume_shards(depth, int(mesh.devices.shape[0]),
+                            resolve_halo_k(model, halo_k))
     h_true, w_true = model.cfg.height, model.cfg.width
     pot_key = model.pot_key
 
     if probe is None:
         r, c = model.probe_pixel
-        # clamp to the true grid (JAX would clamp out-of-range indices
-        # anyway on tiny grids, but on PADDED planes the implicit clamp
-        # would land in the pad region's garbage instead)
-        r, c = min(r, h_true - 1), min(c, w_true - 1)
+        r, c = min(r, h_true - 1), min(c, w_true - 1)  # tiny grids
 
         def probe(s):
             return (
                 s[pot_key][depth // 2, r, c] - model.min_v
             ) / (model.max_v - model.min_v)
 
-    def _pad_mask(m):
-        if padded_hw is None:
-            return m
-        hp, wp = padded_hw
-        return np.pad(
-            np.asarray(m, np.float32),
-            ((0, 0), (0, hp - h_true), (0, wp - w_true)),
-            mode="constant", constant_values=model.min_v,
-        )
-
-    ev_masks = [jnp.asarray(_pad_mask(e.resolve_mask(model, depth)))
-                for e in events]
+    ev_masks = [jnp.asarray(e.resolve_mask(model, depth)) for e in events]
     ev_steps = [int(e.step) for e in events]
 
     ew = None
     if electrodes:
-        # [E, D, H, W] lead-field weights on the TRUE grid — the kernel
-        # path's padded planes are cropped before sampling, so the pad
-        # region never radiates
+        # [E, D, H, W] lead-field weights
         ew = jnp.asarray(np.stack([
             stencil3d.ecg_weights(depth, h_true, w_true, pos)
             for pos in electrodes
@@ -546,7 +310,7 @@ def run_volume(
 
             chunk = make_volume_spmd_chunk(
                 model, mesh, length, depth, fire=fire, phase=phase,
-                dz_ratio=dz_ratio, fiber=fiber, use_kernel=spmd_kernel,
+                dz_ratio=dz_ratio, fiber=fiber,
                 rotor=rotor_probe, tau_steps=tau_steps,
                 rotor_v_star=rotor_v_star, halo_k=halo_k,
                 ecg_weights=ew,
@@ -556,28 +320,22 @@ def run_volume(
 
         def body(carry, _):
             s, i, buf, idx = carry
-            s = step_fn(s)
+            s = model.step(s, geom)
             pot = s[pot_key]
             for t, m in fire:
                 pot = jnp.where(i == t, jnp.maximum(pot, m), pot)
             s = {**s, pot_key: pot}
             out = {"v": probe(s)}
             if ew is not None:
-                src = pot
-                if padded_hw is not None:
-                    src = src[:, :h_true, :w_true]
                 # the same discrete source term the model integrates:
                 # laplace of the boundary-enforced potential (e.g.
                 # fenton.py step: diff * laplace(enforce_boundary(u)))
-                lap = geom.laplace(geom.enforce_boundary(src))
-                out["ecg"] = jnp.einsum("dhw,edhw->e", lap, ew)
+                lap = geom.laplace(geom.enforce_boundary(pot))
+                out["ecg"] = stencil3d.ecg_sample(lap, ew)
             if rotor_probe:
                 from fib_tf_tpu.ops import stencil
 
                 img = model.image(s)
-                if padded_hw is not None:
-                    # the census must not see the pad region's garbage
-                    img = img[:, :h_true, :w_true]
                 old = jax.lax.dynamic_index_in_dim(
                     buf, idx, 0, keepdims=False
                 )
@@ -601,10 +359,6 @@ def run_volume(
         return chunk
 
     st = {k: jnp.asarray(v) for k, v in state.items()}
-    if padded_hw is not None:
-        from fib_tf_tpu.ops.pallas_volume import pad_volume_state
-
-        st = pad_volume_state(st, h_true, w_true, *padded_hw)
     if rotor_probe:
         img0 = jnp.asarray(np.asarray(
             model.image({pot_key: np.asarray(state[pot_key], np.float32)}),
@@ -643,11 +397,9 @@ def run_volume(
             probes.append(jax.tree.map(np.asarray, p))
             done += length
             img = np.asarray(model.image({pot_key: np.asarray(st[pot_key])}))
-            if padded_hw is not None:
-                img = img[:, :h_true, :w_true]
             frames.append(img.astype(np.float32))
 
-    final = {k: np.asarray(v)[:, :h_true, :w_true] for k, v in st.items()}
+    final = {k: np.asarray(v) for k, v in st.items()}
     if not np.isfinite(final[pot_key]).all():
         raise FloatingPointError(
             "non-finite potential in run_volume (the reference's disabled "

@@ -137,10 +137,8 @@ def repeat_substeps(fn: Callable[[State], State], state: State,
                     n: int, unroll: bool) -> State:
     """`n` identical substeps, either Python-unrolled or under
     `lax.fori_loop`.  Same ops in the same order per iteration, so the
-    two forms are value-identical.  NOTE: the fori form does NOT speed up
-    Mosaic compiles — measured slower than the unroll on every model
-    (see IonicModel.kernel_step); it exists for experimentation and for
-    host-side scans where trace size matters."""
+    two forms are value-identical.  The fori form keeps one body in the
+    traced program, for scans where trace size matters."""
     if unroll or n == 1:
         for _ in range(n):
             state = fn(state)
@@ -179,13 +177,12 @@ class IonicModel:
     # each plane rides the STATE dict under a reserved "_p_<name>" key —
     # models read it in solve() and pass it through unchanged.  Because
     # they are ordinary state planes, every execution path carries them
-    # with zero extra plumbing: XLA scan, the whole-grid/tiled/block
-    # Pallas kernels (mapped by state_keys), GSPMD and shard_map sharding
-    # (sharded with the grid; wide-halo ghost rows arrive by the same
-    # ppermute as the dynamic planes and are exactly right because the
-    # planes are constant), ensembles, checkpoints, and adaptive-dt.  The
-    # recurring cost is one extra plane of HBM/ICI traffic per plane —
-    # measured small next to the 8-22 dynamic planes.  (The per-pixel
+    # with zero extra plumbing: the single-device scan, GSPMD and
+    # shard_map sharding (sharded with the grid; wide-halo ghost rows
+    # arrive by the same ppermute as the dynamic planes and are exactly
+    # right because the planes are constant), ensembles, checkpoints, and
+    # adaptive-dt.  The recurring cost is one extra plane of memory and
+    # halo traffic per plane, next to the 8-22 dynamic planes.  (The per-pixel
     # DIFFUSION map is geometry, not an ionic parameter, and rides the
     # phase-field plumbing instead: models/base.grid_geometry's `dmap`.)
 
@@ -249,9 +246,9 @@ class IonicModel:
     # Per-channel maximal-conductance scale factors (SimConfig.g_scale /
     # set_scale): the framework-level pharmacology layer.  Factors are
     # Python floats read at TRACE time, so they fold into the compiled
-    # step as constants — zero runtime cost on every execution path (XLA
-    # scan, the fused Mosaic kernels, GSPMD/shard_map meshes, vmapped
-    # ensembles), and a factor of exactly 1.0 leaves the program bitwise
+    # step as constants — no extra operations on any execution path
+    # (single device, GSPMD/shard_map meshes, vmapped ensembles), and a
+    # factor of exactly 1.0 leaves the program bitwise
     # unchanged (gscale returns the unscaled expression untouched).
     # Composes multiplicatively with per-pixel heterogeneity planes
     # (het_param: substrate x dose) and court's chronic remodeling.
@@ -308,8 +305,8 @@ class IonicModel:
         raise NotImplementedError
 
     def state_keys(self):
-        """Sorted state-plane names, for metadata-only callers (kernel
-        builders, sharding specs, engine sizing).  Default derives them
+        """Sorted state-plane names, for metadata-only callers (sharding
+        specs, engine sizing).  Default derives them
         from initial_state; models whose initial_state does real work
         (e.g. the ab2 derivative bootstrap) override this with the
         literal key tuple."""
@@ -330,7 +327,7 @@ class IonicModel:
         only touched once per outer step.  `unroll=False` runs the
         identical substeps under `lax.fori_loop` instead of a Python
         unroll — value-identical, but the traced program holds one body
-        (the Pallas kernels use this; see repeat_substeps).
+        (see repeat_substeps).
         """
         if self.cfg.adaptive_dv is not None:
             return repeat_substeps(
@@ -401,56 +398,6 @@ class IonicModel:
         for _ in range(count):
             state = self.solve(state, geom)
         return state
-
-    def substep_fns(self, geom: Geometry):
-        """The outer step decomposed into `dt_per_step` per-substep
-        callables: returns `(fns, labels)` where composing
-        `fns[0] ... fns[-1]` in order is value-identical to
-        `step(state, geom)`, and `labels[i]` is a hashable tag such that
-        equal labels <=> identical traced bodies.
-
-        This is the contract behind `substeps_per_launch` (the Mosaic
-        compile-cliff knob): the fused-kernel builders cut the substep
-        list into launch groups and compile ONE kernel per distinct
-        label-group, so e.g. tp06's ten identical substeps at
-        substeps_per_launch=2 compile a single 2-substep body instead of
-        the 10-substep monolith (ops/pallas_step.py).  Parity is pinned
-        by tests/test_pallas.py::TestSubstepFns.
-
-        The default covers every uniform-schedule model; skip-group
-        models (BeelerReuter, LuoRudy91, TenTusscher06) and the
-        fast/slow-split Courtemanche override with their real schedules.
-        Raises for schedules with no per-substep decomposition
-        (adaptive_dv's data-dependent refinement, fast_slow_ratio
-        tick dispatch)."""
-        self._check_splittable()
-        fn = lambda s: self.solve(s, geom)
-        return [fn] * self.dt_per_step, ("solve",) * self.dt_per_step
-
-    def _check_splittable(self):
-        if self.cfg.adaptive_dv is not None:
-            raise ValueError(
-                "adaptive_dv substeps refine data-dependently and cannot "
-                "be split into fixed launch groups"
-            )
-        if self.fast_slow_ratio:
-            raise ValueError(
-                "fast_slow_ratio models dispatch whole outer steps by "
-                "tick; there is no per-substep decomposition to split"
-            )
-
-    def kernel_step(self, state: State, geom: Geometry) -> State:
-        """The outer step as traced inside Pallas kernels.
-
-        Measured negative result (v5e, fresh Mosaic compiles, cache off):
-        running the identical substeps under `lax.fori_loop`
-        (`unroll=False`) to shrink the traced program made compiles
-        SLOWER, not faster — BR whole-grid 389 s vs 294 s unrolled, court
-        566 s vs 480 s unrolled.  Mosaic's loop analysis costs more than
-        the duplicated bodies save, so kernels trace the plain Python
-        unroll; the `unroll=False` path stays available (value-identical,
-        tested) for experiments."""
-        return self.step(state, geom)
 
     # -- tick-indexed fast/slow dispatch (reference ionic.py:277-286) -----------
     #

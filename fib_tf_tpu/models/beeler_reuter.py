@@ -386,19 +386,6 @@ class BeelerReuter(IonicModel):
         arbitrary boundaries."""
         return not self.cfg.skip and self.cfg.adaptive_dv is None
 
-    def substep_fns(self, geom: Geometry):
-        """Launch-split schedule (models/base.substep_fns contract): with
-        `skip`, substep 0 is the n=5 slow-gate advance and substeps 1-4
-        the n=0 frozen form — two distinct bodies, so a split compiles
-        two kernels and reuses the n=0 one."""
-        self._check_splittable()
-        if not self.cfg.skip:
-            fn = lambda s: self.solve(s, geom, n=1)
-            return [fn] * 5, ("n1",) * 5
-        first = lambda s: self.solve(s, geom, n=5)
-        rest = lambda s: self.solve(s, geom, n=0)
-        return [first] + [rest] * 4, ("n5",) + ("n0",) * 4
-
     def step(self, state: State, geom: Geometry,
              unroll: bool = True) -> State:
         """One outer step = 5 substeps; with `skip`, the first substep

@@ -626,28 +626,6 @@ class Courtemanche(IonicModel):
     def solve(self, state: State, geom: Geometry) -> State:
         return self.carry_het(state, self.solve_full(state, geom)[0])
 
-    def substep_fns(self, geom: Geometry):
-        """Launch-split schedule (models/base.substep_fns contract):
-        substep 0 is the fast-commit-then-slow-commit pair (the two
-        sess.runs of the reference schedule, court.py:615-619), substeps
-        1-9 the shared fast-only body."""
-        self._check_splittable()
-        slow = [k for k in self.state_keys()
-                if k not in self.fast_states
-                and not k.startswith(self.HET_PREFIX)]
-
-        def fast_only(s):
-            s1 = self.solve(s, geom)
-            return {**s, **{k: s1[k] for k in self.fast_states}}
-
-        def first(s):
-            s = fast_only(s)
-            s1 = self.solve(s, geom)
-            return {**s, **{k: s1[k] for k in slow}}
-
-        return ([first] + [fast_only] * (SLOW_RATIO - 1),
-                ("fast+slow",) + ("fast",) * (SLOW_RATIO - 1))
-
     def step(self, state: State, geom: Geometry,
              unroll: bool = True) -> State:
         """One fused fast/slow group of 10 dt substeps.
@@ -737,13 +715,6 @@ class CourtemancheUltra(Courtemanche):
 
     def dt_for(self, name: str) -> float:
         return self.cfg.dt  # δt ≡ dt (court_ultra.py:127-132)
-
-    def substep_fns(self, geom: Geometry):
-        """Single-rate: ten identical full-commit solves (NOT the parent's
-        fast/slow pair — all 22 states advance every dt)."""
-        self._check_splittable()
-        fn = lambda s: self.solve(s, geom)
-        return [fn] * SLOW_RATIO, ("solve",) * SLOW_RATIO
 
     def step(self, state: State, geom: Geometry,
              unroll: bool = True) -> State:

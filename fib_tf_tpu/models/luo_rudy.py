@@ -29,10 +29,8 @@ Model contract matches the rest of the zoo (models/base.py): pure
 `solve`/`step` over injected Geometry, so 0D cell tests, 2D tissue
 (phase fields, anisotropy), 3D volumes, ensembles, GSPMD/shard_map
 sharding, and adaptive-dt all work unchanged.  Rates are evaluated
-DIRECTLY (no Chebyshev variant): the piecewise h/j branches fit poorly,
-and the Courtemanche measurement showed direct evaluation beats
-polynomial fits for branch-heavy rate sets on TPU (docs/OPTIMIZATIONS.md
-§6 — transcendentals are cheap on the VPU).
+DIRECTLY (no Chebyshev variant): the piecewise h/j branches fit
+poorly.
 
 Constants: reversal potentials are computed from the paper's ionic
 concentrations ([K]o=5.4, [K]i=145, [Na]o=140, [Na]i=18 mM) at T=310 K
@@ -298,19 +296,6 @@ class LuoRudy91(IonicModel):
         the skip schedule (one n=10 + nine n=0) is not splittable at
         arbitrary boundaries."""
         return not self.cfg.skip and self.cfg.adaptive_dv is None
-
-    def substep_fns(self, geom: Geometry):
-        """Launch-split schedule (models/base.substep_fns contract):
-        same shape as BeelerReuter's — with skip, one n=10 body then
-        nine shared n=0 bodies."""
-        self._check_splittable()
-        k = self.dt_per_step
-        if not self.cfg.skip:
-            fn = lambda s: self.solve(s, geom, n=1)
-            return [fn] * k, ("n1",) * k
-        first = lambda s: self.solve(s, geom, n=k)
-        rest = lambda s: self.solve(s, geom, n=0)
-        return [first] + [rest] * (k - 1), ("n10",) + ("n0",) * (k - 1)
 
     def step(self, state: State, geom: Geometry,
              unroll: bool = True) -> State:

@@ -25,11 +25,8 @@ the smallest model it ships, 4 variables):
 
 Model contract matches the rest of the zoo (models/base.py): pure
 `solve`/`step` over injected Geometry, so 0D, 2D (with phase fields,
-anisotropy via the geometry), 3D volumes, ensembles, and the adaptive-dt
-integrator all work unchanged — including the whole-grid Pallas kernel
-paths ('ms' is in the eligibility lists of Simulation._use_pallas, the
-spmd block-kernel gate, and the ensemble kernel gate; kernel == XLA is
-pinned in tests/test_pallas.py).
+anisotropy via the geometry), 3D volumes, ensembles, sharded meshes and
+the adaptive-dt integrator all work unchanged.
 """
 
 from __future__ import annotations

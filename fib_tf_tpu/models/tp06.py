@@ -34,9 +34,8 @@ Model contract matches the rest of the zoo (models/base.py): pure
 `solve`/`step` over injected Geometry, so 0D cell tests, 2D tissue
 (phase fields, anisotropy), 3D volumes, ensembles, GSPMD/shard_map
 sharding, and adaptive-dt all work unchanged.  Rates are evaluated
-DIRECTLY (no Chebyshev variant) for the same measured reason as
-Courtemanche and Luo-Rudy: transcendentals are cheap on the VPU and the
-h/j branches fit polynomials poorly (docs/OPTIMIZATIONS.md §6).
+DIRECTLY (no Chebyshev variant), as for Courtemanche and Luo-Rudy: the
+h/j branches fit polynomials poorly.
 
 `skip` (the reference's flagship Beeler-Reuter multi-rate technique,
 br.py:96-107) advances the SLOW_GATES once per outer step at 10 dt =
@@ -60,7 +59,7 @@ import numpy as np
 
 from fib_tf_tpu.config import SimConfig
 from fib_tf_tpu.models.base import Geometry, IonicModel, State
-from fib_tf_tpu.ops.integrators import expm1, rush_larsen
+from fib_tf_tpu.ops.integrators import rush_larsen
 
 # -- physical constants -------------------------------------------------------
 R_GAS = 8314.472      # J / (kmol K)
@@ -456,14 +455,11 @@ class TenTusscher06(IonicModel):
         # singularity at V = 15 mV handled by its exact limit
         x = 2.0 * (v0 - 15.0) * F_RT
         num = 0.25 * ca_ss * jnp.exp(x) - CA_O
-        # integrators.expm1, not jnp.expm1: Mosaic has no expm1 lowering,
-        # so inside Pallas kernels this becomes the value-equivalent
-        # Taylor/exp-1 branch-free form (ops/integrators.py)
         drive = jnp.where(
             jnp.abs(x) < 1e-4,
             # lim (V-15)·num/(e^x - 1) = (RT/2F)·(0.25 CaSS - Ca_o)
             0.5 * RTF * (0.25 * ca_ss - CA_O),
-            (v0 - 15.0) * num / expm1(x),
+            (v0 - 15.0) * num / jnp.expm1(x),
         )
         i_cal = (self.gscale("g_CaL", G_CAL)
                  * s["d"] * s["f"] * s["f2"] * s["fcass"]
@@ -591,21 +587,6 @@ class TenTusscher06(IonicModel):
         the skip schedule (one n=10 + nine n=0) is not splittable at
         arbitrary boundaries."""
         return not self.cfg.skip and self.cfg.adaptive_dv is None
-
-    def substep_fns(self, geom: Geometry):
-        """Launch-split schedule (models/base.substep_fns contract):
-        without skip, ten identical n=1 bodies — the case where
-        substeps_per_launch pays most (one small kernel compiled instead
-        of the ~2000 s whole-step Mosaic monolith); with skip, the n=10
-        slow advance leads and the nine n=0 bodies share one kernel."""
-        self._check_splittable()
-        k = self.dt_per_step
-        if not self.cfg.skip:
-            fn = lambda s: self.solve(s, geom, n=1)
-            return [fn] * k, ("n1",) * k
-        first = lambda s: self.solve(s, geom, n=k)
-        rest = lambda s: self.solve(s, geom, n=0)
-        return [first] + [rest] * (k - 1), ("n10",) + ("n0",) * (k - 1)
 
     def step(self, state: State, geom: Geometry,
              unroll: bool = True) -> State:

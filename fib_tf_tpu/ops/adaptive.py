@@ -6,7 +6,7 @@ reference ionic.py:208-212).  `SimConfig.dv_max` reproduces the pragmatic
 guard (a |ΔV| clip, the court analog of BR's reference V-clip); THIS
 module is the *correct* alternative: when a substep attempt is rejected,
 it is re-taken as two half-dt substeps, recursively down to
-dt / 2**adaptive_depth.  The refinement is a `lax.cond`, so on TPU the
+dt / 2**adaptive_depth.  The refinement is a `lax.cond`, so the
 half-dt branch only executes (and only costs) when triggered — during a
 well-resolved run the adaptive step computes the same substeps as the
 plain integrator (identical to within XLA fusion rounding: wrapping the

@@ -19,25 +19,6 @@ import jax.numpy as jnp
 GATE_MIN = 0.00001
 GATE_MAX = 0.99999
 
-# Mosaic (Pallas TPU) has no expm1 lowering; inside kernels we substitute a
-# value-equivalent branch-free form: degree-5 Taylor for |x| < 1/8 (next
-# term < 6e-9, below f32 eps) and exp(x)-1 elsewhere (relative error
-# <= eps/|x| ~ 5e-7).  The XLA path keeps the hardware expm1 to stay
-# bit-faithful to the reference's tf.expm1 (ionic.py:122).
-_IN_PALLAS_KERNEL = False
-
-
-def _expm1_pallas(x):
-    c2, c3, c4, c5 = 1 / 2, 1 / 6, 1 / 24, 1 / 120
-    taylor = x * (1.0 + x * (c2 + x * (c3 + x * (c4 + x * c5))))
-    return jnp.where(jnp.abs(x) < 0.125, taylor, jnp.exp(x) - 1.0)
-
-
-def expm1(x):
-    if _IN_PALLAS_KERNEL:
-        return _expm1_pallas(x)
-    return jnp.expm1(x)
-
 
 def euler(g, rate, dt):
     """Forward Euler step (reference court.py:115-116)."""
@@ -67,7 +48,7 @@ def rush_larsen(g, g_inf, g_tau, dt):
     (reference ionic.py:115-123)
     """
     return jnp.clip(
-        g + (g - g_inf) * expm1(-dt / g_tau), GATE_MIN, GATE_MAX
+        g + (g - g_inf) * jnp.expm1(-dt / g_tau), GATE_MIN, GATE_MAX
     )
 
 

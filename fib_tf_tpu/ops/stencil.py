@@ -1,8 +1,8 @@
 """Finite-difference grid operators.
 
 Pure `jnp` functions over `[H, W]` arrays; everything here traces into a
-single fused XLA computation under `jax.jit` (the TPU-native equivalent of
-the reference's `experimental_jit_scope` fusion clusters).
+single fused XLA computation under `jax.jit` (the equivalent of the
+reference's `experimental_jit_scope` fusion clusters).
 
 Behavioral parity targets (see SURVEY.md appendix):
   * `laplace`      — 9-point stencil, diagonals x0.5, center -6, REFLECT
@@ -86,10 +86,10 @@ def laplace(
 def laplace_conv(x: jnp.ndarray) -> jnp.ndarray:
     """Convolution-kernel variant of the 9-point Laplacian with zero
     ('SAME') padding — the pedagogical baseline path (reference
-    fenton_simple.py:32-49 used a depthwise conv).  On TPU this lowers to
-    an MXU convolution; the direct form (`laplace`) is usually faster for
-    a single channel but this variant is kept as a compile-time choice and
-    for the fenton_simple example's parity.
+    fenton_simple.py:32-49 used a depthwise conv), kept for the
+    fenton_simple example's parity.  The contraction is pinned to full
+    float32 precision: a GPU may otherwise run it in TF32, which keeps
+    about three decimal digits.
     """
     kernel = jnp.asarray(
         [[0.5, 1.0, 0.5], [1.0, -6.0, 1.0], [0.5, 1.0, 0.5]],
@@ -100,6 +100,7 @@ def laplace_conv(x: jnp.ndarray) -> jnp.ndarray:
         kernel[None, None, :, :],
         window_strides=(1, 1),
         padding="SAME",
+        precision=jax.lax.Precision.HIGHEST,
     )[0, 0]
 
 
@@ -447,3 +448,158 @@ def rotor_metrics(
         )
         q = jnp.where(tissue, q, 0.0)
     return jnp.stack([jnp.sum(jnp.abs(q)), jnp.sum(q)])
+
+
+# -----------------------------------------------------------------------------
+# Halo-extended block geometry (the shard_map wide-halo path)
+# -----------------------------------------------------------------------------
+
+def _col_reflect_west(x):
+    return jnp.concatenate([x[:, 1:2], x[:, :-1]], axis=1)
+
+
+def _col_reflect_east(x):
+    return jnp.concatenate([x[:, 1:], x[:, -2:-1]], axis=1)
+
+
+def _row_up(x):  # y[i] = x[i-1]; row 0 keeps itself (fixed by masks/halo)
+    return jnp.concatenate([x[:1], x[:-1]], axis=0)
+
+
+def _row_down(x):  # y[i] = x[i+1]; last row keeps itself
+    return jnp.concatenate([x[1:], x[-1:]], axis=0)
+
+
+def _col_left(x):   # y[:, j] = x[:, j-1]; col 0 keeps itself
+    return jnp.concatenate([x[:, :1], x[:, :-1]], axis=1)
+
+
+def _col_right(x):  # y[:, j] = x[:, j+1]; last col keeps itself
+    return jnp.concatenate([x[:, 1:], x[:, -1:]], axis=1)
+
+
+def block_geometry(
+    rg: jnp.ndarray,
+    h_total: int,
+    cg: Optional[jnp.ndarray] = None,
+    w_total: Optional[int] = None,
+    phase_ext: Optional[jnp.ndarray] = None,
+    fiber: Optional[tuple] = None,
+    dmap_ext: Optional[jnp.ndarray] = None,
+) -> Geometry:
+    """Geometry over a block extended with halo rows (and, when `cg` is
+    given, halo columns) — the shard_map wide-halo path's operators
+    (parallel/spmd.py), value-identical to `laplace` /
+    `anisotropic_laplace` / `enforce_boundary` on the true grid.
+
+    `rg` is the [ext_h, 1] int32 array of global row indices of the
+    block's rows; rows outside [0, h_total) are halo garbage that shrinks
+    away one ring per substep.  Without `cg`, columns span the full width
+    and use plain REFLECT semantics; with `cg` ([1, ext_w] global column
+    indices) the same global-edge masking applies along columns — the 2D
+    wide-halo case.
+
+    `dmap_ext` is the per-pixel relative diffusion map on the SAME
+    extended block (fibrosis; stencil.conduction_correction convention),
+    composable with both the phase field and the fiber tensor.
+    """
+    from fib_tf_tpu.models.base import Geometry
+
+    top = rg == 0
+    bottom = rg == h_total - 1
+
+    def north(x):
+        # reflect at the global top edge: row 0's north neighbor is row 1
+        return jnp.where(top, _row_down(x), _row_up(x))
+
+    def south(x):
+        return jnp.where(bottom, _row_up(x), _row_down(x))
+
+    if cg is None:
+        west, east = _col_reflect_west, _col_reflect_east
+
+        def col_fix(x):
+            return jnp.concatenate(
+                [x[:, 1:2], x[:, 1:-1], x[:, -2:-1]], axis=1
+            )
+    else:
+        left_edge = cg == 0
+        right_edge = cg == w_total - 1
+
+        def west(x):
+            return jnp.where(left_edge, _col_right(x), _col_left(x))
+
+        def east(x):
+            return jnp.where(right_edge, _col_left(x), _col_right(x))
+
+        def col_fix(x):
+            x = jnp.where(left_edge, _col_right(x), x)
+            x = jnp.where(right_edge, _col_left(x), x)
+            return x
+
+    def laplace(x):
+        n = north(x)
+        s = south(x)
+        w = west(x)
+        e = east(x)
+        nw = west(n)
+        ne = east(n)
+        sw = west(s)
+        se = east(s)
+        if fiber is not None:
+            # anisotropic tensor operator (value-identical to
+            # stencil.anisotropic_laplace incl. the x2 normalization)
+            dxx, dxy, dyy = fiber
+            vxx = w - 2.0 * x + e
+            vyy = n - 2.0 * x + s
+            vxy = 0.25 * (se + nw - sw - ne)
+            l = 2.0 * (dxx * vxx + 2.0 * dxy * vxy + dyy * vyy)
+            if dmap_ext is not None:
+                l = dmap_ext * l
+                q = (dmap_ext * phase_ext if phase_ext is not None
+                     else dmap_ext)
+                phi = phase_ext if phase_ext is not None else 1.0
+                gx = e - w
+                gy = s - n
+                qx = east(q) - west(q)
+                qy = south(q) - north(q)
+                return l + (
+                    gx * (dxx * qx + dxy * qy)
+                    + gy * (dxy * qx + dyy * qy)
+                ) / (4.0 * phi)
+            if phase_ext is not None:
+                p = phase_ext
+                gx = e - w
+                gy = s - n
+                px = east(p) - west(p)
+                py = south(p) - north(p)
+                l = l + (
+                    gx * (dxx * px + dxy * py)
+                    + gy * (dxy * px + dyy * py)
+                ) / (4.0 * p)
+            return l
+        l = n + s + w + e + 0.5 * (nw + ne + sw + se) - 6.0 * x
+        if dmap_ext is not None:
+            l = dmap_ext * l
+            q = (dmap_ext * phase_ext if phase_ext is not None
+                 else dmap_ext)
+            phi = phase_ext if phase_ext is not None else 1.0
+            return l + (
+                (s - n) * (south(q) - north(q))
+                + (e - w) * (east(q) - west(q))
+            ) / (4.0 * phi)
+        if phase_ext is not None:
+            p = phase_ext
+            pn = north(p)
+            ps = south(p)
+            pw = west(p)
+            pe = east(p)
+            l = l + ((s - n) * (ps - pn) + (e - w) * (pe - pw)) / (4.0 * p)
+        return l
+
+    def enforce_boundary(x):
+        x = jnp.where(top, _row_down(x), x)       # row 0 <- row 1
+        x = jnp.where(bottom, _row_up(x), x)      # row H-1 <- row H-2
+        return col_fix(x)
+
+    return Geometry(laplace=laplace, enforce_boundary=enforce_boundary)

@@ -243,6 +243,15 @@ def ecg_weights(
     return (1.0 / np.maximum(r, r_min)).astype(np.float32)
 
 
+def ecg_sample(lap: jnp.ndarray, weights: jnp.ndarray) -> jnp.ndarray:
+    """Electrode potentials `[E]` from a source term `lap` `[D, H, W]`
+    and lead fields `weights` `[E, D, H, W]` (`ecg_weights`).  The float32
+    contraction is pinned to full precision: a GPU may otherwise run it
+    in TF32, which keeps about three decimal digits."""
+    return jnp.einsum("dhw,edhw->e", lap, weights,
+                      precision=jax.lax.Precision.HIGHEST)
+
+
 def pace_mask3d(
     depth: int,
     height: int,
@@ -260,3 +269,139 @@ def pace_mask3d(
     m = np.full([depth, height, width], min_v, dtype=np.float32)
     m[z0:z1 if z1 is not None else depth] = m2
     return m
+
+
+# -----------------------------------------------------------------------------
+# z-halo block geometry (the z-sharded wide-halo path)
+# -----------------------------------------------------------------------------
+
+def _shift2(x: jnp.ndarray, dr: int, dc: int) -> jnp.ndarray:
+    """y[i, j] = x[reflect(i+dr), reflect(j+dc)] for dr, dc in {-1, 0, 1}
+    on a 2D `[H, W]` field (mirror excluding the edge, as a 1-cell
+    REFLECT pad + slice)."""
+    y = x
+    if dr == -1:
+        y = jnp.concatenate([y[1:2], y[:-1]], axis=0)
+    elif dr == 1:
+        y = jnp.concatenate([y[1:], y[-2:-1]], axis=0)
+    if dc == -1:
+        y = jnp.concatenate([y[:, 1:2], y[:, :-1]], axis=1)
+    elif dc == 1:
+        y = jnp.concatenate([y[:, 1:], y[:, -2:-1]], axis=1)
+    return y
+
+
+def _shift3(x: jnp.ndarray, dr: int, dc: int) -> jnp.ndarray:
+    """In-plane shift of a `[D, H, W]` volume: y[z, i, j] =
+    x[z, reflect(i+dr), reflect(j+dc)] — the 3D broadcast of `_shift2`
+    (axes -2/-1 instead of 0/1)."""
+    y = x
+    if dr == -1:
+        y = jnp.concatenate([y[:, 1:2], y[:, :-1]], axis=1)
+    elif dr == 1:
+        y = jnp.concatenate([y[:, 1:], y[:, -2:-1]], axis=1)
+    if dc == -1:
+        y = jnp.concatenate([y[:, :, 1:2], y[:, :, :-1]], axis=2)
+    elif dc == 1:
+        y = jnp.concatenate([y[:, :, 1:], y[:, :, -2:-1]], axis=2)
+    return y
+
+
+def _zup_raw(x: jnp.ndarray) -> jnp.ndarray:
+    """y[z] = x[z-1]; slice 0 keeps itself (halo garbage, masked away)."""
+    return jnp.concatenate([x[:1], x[:-1]], axis=0)
+
+
+def _zdown_raw(x: jnp.ndarray) -> jnp.ndarray:
+    """y[z] = x[z+1]; last slice keeps itself."""
+    return jnp.concatenate([x[1:], x[-1:]], axis=0)
+
+
+def zblock_geometry(
+    zg: jnp.ndarray,
+    d_total: int,
+    phase: Optional[jnp.ndarray] = None,
+    dz_ratio: float = 1.0,
+    fiber: Optional[tuple] = None,
+) -> Geometry:
+    """Geometry over a volume block extended with K ghost z-slices — the
+    3D analog of ops.stencil.block_geometry, for the z-sharded wide-halo
+    path (parallel/volume_spmd.py).
+
+    `zg` is the `[ext_d, 1, 1]` int32 array of global z indices of the
+    block's slices; slices outside [0, d_total) are halo garbage that
+    shrinks away one ring per substep.  In-plane each shard owns the full
+    `[H, W]` sheet, so the in-plane operators are plain shifts
+    (REFLECT/SYMMETRIC at the true edges, value-identical to
+    `laplace3d`'s planar part); only the z direction needs global-edge
+    masking (REFLECT at global z = 0 / d_total-1, ghost slices
+    elsewhere).  `fiber` entries
+    must already be halo-EXTENDED `[ext_d, 1, 1]` per-slice tensors
+    (static — the caller ppermutes them once per chunk)."""
+    from fib_tf_tpu.models.base import Geometry
+
+    top = zg == 0
+    bottom = zg == d_total - 1
+
+    def z_term(x):
+        # raw shifts computed once and reused by both edge selects.
+        # Reflect at the global faces: slice 0's z-neighbor is slice 1,
+        # etc.
+        zu = _zup_raw(x)
+        zd = _zdown_raw(x)
+        zup = jnp.where(top, zd, zu)
+        zdown = jnp.where(bottom, zu, zd)
+        return zup - 2.0 * x + zdown
+
+    def laplace(x):
+        n = _shift3(x, -1, 0)
+        s = _shift3(x, 1, 0)
+        w = _shift3(x, 0, -1)
+        e = _shift3(x, 0, 1)
+        nw = _shift3(x, -1, -1)
+        ne = _shift3(x, -1, 1)
+        sw = _shift3(x, 1, -1)
+        se = _shift3(x, 1, 1)
+        if fiber is None:
+            planar = n + s + w + e + 0.5 * (nw + ne + sw + se) - 6.0 * x
+            if phase is not None:
+                pn = _shift2(phase, -1, 0)
+                ps = _shift2(phase, 1, 0)
+                pw = _shift2(phase, 0, -1)
+                pe = _shift2(phase, 0, 1)
+                planar = planar + (
+                    (s - n) * (ps - pn) + (e - w) * (pe - pw)
+                ) / (4.0 * phase)
+        else:
+            dxx, dxy, dyy = fiber
+            vxx = w - 2.0 * x + e
+            vyy = n - 2.0 * x + s
+            vxy = 0.25 * (se + nw - sw - ne)
+            planar = 2.0 * (dxx * vxx + 2.0 * dxy * vxy + dyy * vyy)
+            if phase is not None:
+                gx = e - w
+                gy = s - n
+                px = _shift2(phase, 0, 1) - _shift2(phase, 0, -1)
+                py = _shift2(phase, 1, 0) - _shift2(phase, -1, 0)
+                planar = planar + (
+                    gx * (dxx * px + dxy * py)
+                    + gy * (dxy * px + dyy * py)
+                ) / (4.0 * phase)
+        return planar + (2.0 * dz_ratio) * z_term(x)
+
+    def enforce_boundary(x):
+        # SYMMETRIC z faces only at the global edges (interior neighbor
+        # replaces the face slice), in-plane faces everywhere.  Raw
+        # shifts from the pre-rewrite array, computed once — equivalent
+        # for >= 3 slices between the global faces
+        zd = _zdown_raw(x)
+        zu = _zup_raw(x)
+        x = jnp.where(top, zd, x)
+        x = jnp.where(bottom, zu, x)
+        x = jnp.concatenate([x[:, 1:2], x[:, 1:-1], x[:, -2:-1]], axis=1)
+        x = jnp.concatenate(
+            [x[:, :, 1:2], x[:, :, 1:-1], x[:, :, -2:-1]], axis=2
+        )
+        return x
+
+    return Geometry(laplace=laplace, enforce_boundary=enforce_boundary)

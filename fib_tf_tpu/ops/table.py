@@ -6,9 +6,8 @@ by `clamp(int(V + 100), 0, 149)` with no interpolation
 (courtemanche.h:352-357, 473-479; ionic.h:48-49), generated offline by
 generate_table.cpp.
 
-TPU-native equivalent: the table is a small compile-time constant living in
-VMEM; the per-cell row select is a `jnp.take` gather (or, as a compile-time
-variant, a one-hot matmul that rides the MXU).  The table itself can come
+Here the table is a small compile-time constant and the per-cell row
+select is a `jnp.take` gather.  The table itself can come
 from either the Python rate functions or the C++ generator tool in
 `fib_tf_tpu/native/` (the two are cross-checked in tests).
 """
@@ -62,58 +61,8 @@ def lookup(
     maps each key to an array shaped like `v`.
     """
     idx = row_index(v, table.shape[0])
-    # [..., n_cols] gather; XLA lowers this to a dynamic-gather that stays
-    # in VMEM for a 150x30 f32 table (18 KB).
+    # [..., n_cols] gather from a 150x30 f32 table (18 KB)
     picked = jnp.take(table, idx, axis=0)
-    return {k: picked[..., j] for j, k in enumerate(keys)}
-
-
-def lookup_onehot(
-    table: jnp.ndarray, v: jnp.ndarray, keys: Sequence[str]
-) -> Dict[str, jnp.ndarray]:
-    """Compile-time variant of `lookup` that rides the MXU.
-
-    one_hot(idx, rows) @ table: a [N, rows] x [rows, cols] matmul instead of
-    a gather — useful when the gather is the bottleneck on TPU.
-    """
-    idx = row_index(v, table.shape[0])
-    shape = v.shape
-    oh = jnp.zeros((idx.size, table.shape[0]), dtype=table.dtype)
-    oh = oh.at[jnp.arange(idx.size), idx.reshape(-1)].set(1.0)
-    picked = jnp.dot(oh, table, preferred_element_type=jnp.float32)
-    picked = picked.reshape(shape + (table.shape[1],))
-    return {k: picked[..., j] for j, k in enumerate(keys)}
-
-
-def lookup_onehot_iota(
-    table: jnp.ndarray, v: jnp.ndarray, keys: Sequence[str]
-) -> Dict[str, jnp.ndarray]:
-    """Mosaic-lowerable one-hot lookup: the one-hot matrix is built by an
-    iota==index compare (pure elementwise — no scatter, unlike
-    `lookup_onehot`'s `.at[].set`), then contracted against the table on
-    the MXU.  `v` must be 2D [H, W]; rows are processed whole, so the
-    peak temporary is [W, rows] + [W, n_cols] per row.
-    """
-    import jax
-
-    rows, n_cols = table.shape
-    h, w = v.shape
-    block = max(1, 16384 // w)         # ~16k cells per MXU call (the
-                                       # one-hot block is ~10 MB of VMEM)
-    while h % block:
-        block -= 1
-    n = block * w
-    idx = row_index(v, rows).reshape(h // block, n)  # int32
-
-    col = jax.lax.broadcasted_iota(jnp.int32, (n, rows), 1)
-
-    # static Python loop: lax.map/scan don't lower inside Mosaic kernels
-    picked = jnp.concatenate([
-        jnp.dot((idx[i][:, None] == col).astype(table.dtype), table,
-                preferred_element_type=jnp.float32)
-        for i in range(h // block)
-    ])
-    picked = picked.reshape(h, w, n_cols)
     return {k: picked[..., j] for j, k in enumerate(keys)}
 
 

@@ -4,7 +4,7 @@ The reference is strictly single-device (every graph pinned to one GPU,
 fenton.py:126 etc.); the one parallelism this workload admits is sharding
 the [H, W] grid across chips with 1-cell halo exchange per substep.  Here
 that is first-class: GSPMD partitions the padded stencil automatically
-(halos become collective-permutes over ICI), and a `shard_map` variant
+(halos become collective-permutes between devices), and a `shard_map` variant
 makes the halo exchange explicit for kernel-level control.
 """
 

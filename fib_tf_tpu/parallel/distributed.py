@@ -1,9 +1,10 @@
 """Multi-process (multi-host) runtime glue.
 
-Within one TPU slice, sharding + collectives ride ICI and need no user
-code beyond a Mesh (sharding.py / spmd.py).  Across hosts/slices, JAX's
-standard multi-process runtime carries the same program over DCN: each
-process calls `initialize()` (jax.distributed) at startup, after which
+Within one host, sharding + collectives between its devices need no
+user code beyond a Mesh (sharding.py / spmd.py).  Across hosts, JAX's
+standard multi-process runtime carries the same program over the
+network: each process calls `initialize()` (jax.distributed) at
+startup, after which
 `jax.devices()` spans the whole job and every Mesh built from it shards
 globally.  There is no user-visible communication library — GSPMD/
 shard_map remains the backend (SURVEY.md §5 'distributed communication').
@@ -21,8 +22,9 @@ def initialize(
 ):
     """Initialize the JAX distributed runtime (no-op if single-process).
 
-    On Cloud TPU the arguments are auto-detected from the environment;
-    pass them explicitly for manual clusters.
+    Pass the coordinator address (e.g. `localhost:<port>`), process
+    count and this process's id explicitly where no cluster manager
+    provides them.
     """
     import jax
 

@@ -3,7 +3,7 @@
 GSPMD handles the sharded stencil automatically (see sharding.py); this
 module is the hand-scheduled alternative: the [H, W] grid is row-sharded
 over a 1D mesh axis, each substep exchanges one ghost row with each
-neighbor via `lax.ppermute` over ICI, and the global REFLECT/SYMMETRIC
+neighbor via `lax.ppermute`, and the global REFLECT/SYMMETRIC
 boundary rules (reference ionic.py:44-60, 107-113) are applied only on the
 edge shards.  Used by the shard_map chunk path in `parallel/spmd.py`, which
 keeps the whole scan inside one `shard_map` so static data (the phase
@@ -25,7 +25,7 @@ from fib_tf_tpu.ops import stencil
 
 def _neighbor_rows(x: jnp.ndarray, axis_name: str):
     """Fetch the ghost rows: previous shard's last row and next shard's
-    first row, via two ICI collective-permutes."""
+    first row, via two collective-permutes."""
     n = lax.axis_size(axis_name)
     fwd = [(i, (i + 1) % n) for i in range(n)]   # send downward
     bwd = [(i, (i - 1) % n) for i in range(n)]   # send upward
@@ -109,7 +109,7 @@ def halo_geometry(
     dmap_ext: Optional[jnp.ndarray] = None,
 ) -> Geometry:
     """A Geometry whose operators run on row-sharded local blocks inside
-    `shard_map`, exchanging halos over ICI."""
+    `shard_map`, exchanging halos between devices."""
     return Geometry(
         laplace=partial(halo_laplace, axis_name=axis_name,
                         phase_ext=phase_ext, dmap_ext=dmap_ext),
@@ -123,7 +123,7 @@ def halo_geometry(
 
 def _neighbor_cols(x: jnp.ndarray, axis_name: str):
     """Ghost columns from the left/right neighbors along the column mesh
-    axis (two ICI collective-permutes of [rows, 1] slices)."""
+    axis (two collective-permutes of [rows, 1] slices)."""
     n = lax.axis_size(axis_name)
     fwd = [(i, (i + 1) % n) for i in range(n)]
     bwd = [(i, (i - 1) % n) for i in range(n)]

@@ -4,8 +4,8 @@ Design (scaling-book recipe): pick a mesh, annotate the state sharding, let
 XLA insert the halo collectives.  For a 9-point stencil on a row-sharded
 grid, GSPMD partitions the REFLECT-pad + shifted-slice pattern into local
 stencil work plus one collective-permute of a 1-row halo per neighbor per
-substep — the ICI traffic is H-halo only, identical to what a hand-written
-NCCL exchange would ship.
+substep — the traffic between devices is H-halo only, identical to what
+a hand-written exchange would ship.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Layout: every [H, W] state plane is row-sharded over a 1D mesh axis; each
 substep's stencil triggers two 1-row `ppermute`s (see halo.py); per-step
 scalar probes are computed with masked `psum`s so every shard returns the
 same replicated value.  The phase field is extended (ghost rows + column
-pad) ONCE per chunk, not per substep — static data never re-rides ICI.
+pad) ONCE per chunk, not per substep — static data is exchanged once.
 
 This is the explicit alternative to the GSPMD path (sharding.py), kept for
 (a) kernel-level control of the comm schedule and (b) as a cross-check:
@@ -23,6 +23,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
 from fib_tf_tpu.models.base import IonicModel
+from fib_tf_tpu.ops.stencil import block_geometry
 from fib_tf_tpu.parallel.halo import extend_phase, halo_geometry
 
 # Rotor-census ring-buffer state keys — must match Simulation.ROTOR_BUF /
@@ -167,12 +168,10 @@ def make_spmd_chunk(
     dmap: Optional[np.ndarray] = None,
     egm_masks: Optional[list] = None,
     wide_halo: bool = False,
-    use_kernel: bool = False,
     fiber: Optional[tuple] = None,
     trend_points: Optional[tuple] = None,
     ecg_weights: Optional[list] = None,
     rotor: Optional[tuple] = None,
-    substeps_per_launch: Optional[int] = None,
 ):
     """Build a jitted chunk(state) -> (state, probes) running `length`
     outer steps entirely inside shard_map over `mesh`'s first axis.
@@ -181,22 +180,15 @@ def make_spmd_chunk(
     pair per SUBSTEP to one K-row ppermute pair per OUTER STEP
     (K = dt_per_step): each shard extends its block by K ghost rows, runs
     the whole fused substep group on the extension (ghost rows turn to
-    garbage one ring per substep, exactly like the temporally-blocked
-    Pallas kernel), and keeps the still-valid center.  Fewer, larger ICI
-    messages — the stencil analog of ring-attention's comm/compute
-    overlap.
+    garbage one ring per substep), and keeps the still-valid center.
+    Fewer, larger halo messages — the stencil analog of ring-attention's
+    comm/compute overlap.
 
     2D meshes (rows x cols) are supported on both paths: halo exchange
     runs in two phases (rows, then columns of the row-extended block,
     which carries the diagonal corners for free — halo.extend_2d /
     _exchange_cols); probes psum over both axes.  2D wide-halo exchanges
     K rows + K columns (with KxK corners) once per outer step.
-
-    `use_kernel=True` (requires wide_halo) replaces the per-shard XLA
-    substep group with the fused Pallas block kernel
-    (ops/pallas_tiled.make_block_kernel): halos ride ICI once per outer
-    step, then the whole group runs VMEM-resident — the multi-chip
-    analog of the single-chip whole-grid kernel.
 
     `fiber` = (dxx, dxy, dyy) from stencil.fiber_tensor selects the
     anisotropic tensor operator (also requires wide_halo — the
@@ -223,11 +215,6 @@ def make_spmd_chunk(
         row/column fetches the cross-shard plaquettes) and count/net are
         psums ('rotors').
     """
-    if use_kernel and not wide_halo:
-        raise ValueError(
-            "use_kernel requires wide_halo=True (the per-substep "
-            "exchange path has no fused block to hand the kernel)"
-        )
     if fiber is not None and not wide_halo:
         raise ValueError(
             "fiber anisotropy on the shard_map path requires "
@@ -288,8 +275,6 @@ def make_spmd_chunk(
         ecg_lap = None  # set per-branch below when ECG rides the stream
 
         if wide_halo:
-            from fib_tf_tpu.ops.pallas_tiled import block_geometry
-
             k = model.dt_per_step
             h_local = next(iter(state.values())).shape[0]
             w_local = next(iter(state.values())).shape[1]
@@ -381,37 +366,15 @@ def make_spmd_chunk(
                     return crop1(
                         geom1.laplace(geom1.enforce_boundary(ext1e(v)))
                     )
-            if use_kernel:
-                # per-shard fused Pallas kernel on the extended block:
-                # the halo rode ICI, the substep group runs VMEM-resident
-                # (ops/pallas_tiled.make_block_kernel)
-                from fib_tf_tpu.ops.pallas_tiled import make_block_kernel
+            geom = block_geometry(
+                rg, cfg.height, cg, cfg.width, phase_ext, fiber,
+                dmap_ext=dmap_ext_b,
+            )
 
-                ext_w = w_local + 2 * k if is_2d else w_local
-                kern = make_block_kernel(
-                    model, h_local + 2 * k, ext_w, cfg.height,
-                    cfg.width if is_2d else None, is_2d, has_phase,
-                    fiber=fiber,
-                    substeps_per_launch=substeps_per_launch,
-                    has_dmap=has_dmap,
-                )
-                cstart_val = cstart if is_2d else None
-
-                def advance(s):
-                    ext = {kk: extend(v) for kk, v in s.items()}
-                    ext = kern(ext, rstart, cstart_val, phase_ext,
-                               dmap_ext_b)
-                    return {kk: crop(v) for kk, v in ext.items()}
-            else:
-                geom = block_geometry(
-                    rg, cfg.height, cg, cfg.width, phase_ext, fiber,
-                    dmap_ext=dmap_ext_b,
-                )
-
-                def advance(s):
-                    ext = {kk: extend(v) for kk, v in s.items()}
-                    ext = model.step(ext, geom)
-                    return {kk: crop(v) for kk, v in ext.items()}
+            def advance(s):
+                ext = {kk: extend(v) for kk, v in s.items()}
+                ext = model.step(ext, geom)
+                return {kk: crop(v) for kk, v in ext.items()}
 
         elif is_2d:
             from fib_tf_tpu.parallel.halo import (

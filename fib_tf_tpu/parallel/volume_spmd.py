@@ -1,21 +1,18 @@
 """Wide-halo shard_map chunk for 3D volumes (z-sharded).
 
-The 2D engine's best sharded configuration is the wide-halo shard_map
-path with the per-shard fused Pallas block kernel (parallel/spmd.py,
-measured in docs/OPTIMIZATIONS.md §10b).  This module is its 3D analog
-for `engine/volume.run_volume`: the `[D, H, W]` state is sharded along
-z, each outer step exchanges K = dt_per_step ghost SLICES each way via
-ring ppermute (one big ICI message per neighbor per outer step instead
-of one per substep), and the whole fused substep group runs on the
-extended block — per-shard either as plain XLA or VMEM-resident inside
-`ops.pallas_volume.make_volume_block_kernel`.  Ghost slices decay one
-ring per substep, exactly like the 2D wide-halo rows.
+The 3D analog of the 2D engine's wide-halo shard_map path
+(parallel/spmd.py) for `engine/volume.run_volume`: the `[D, H, W]` state
+is sharded along z, each outer step exchanges K = dt_per_step ghost
+SLICES each way via ring ppermute (one big message per neighbor per
+outer step instead of one per substep), and the whole fused substep
+group runs on the extended block.  Ghost slices decay one ring per
+substep, exactly like the 2D wide-halo rows.
 
 The z-coupling is one slice of state each way; in-plane each shard owns
 the full sheet, so in-plane operators need no communication and the 2D
 extruded phase field is simply replicated.  Per-slice fiber tensors
 (rotational anisotropy) are z-sharded and halo-extended once per chunk
-— static data never re-rides ICI (same rule as parallel/spmd.py's
+— static data is exchanged once (same rule as parallel/spmd.py's
 phase handling).
 
 Probes mirror run_volume's: the scalar v probe is a masked psum (only
@@ -36,10 +33,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
 from fib_tf_tpu.models.base import IonicModel
-from fib_tf_tpu.ops.pallas_volume import (
-    make_volume_block_kernel,
-    zblock_geometry,
-)
+from fib_tf_tpu.ops.stencil3d import ecg_sample, zblock_geometry
 
 
 def check_volume_shards(depth: int, n_shards: int, k: int) -> None:
@@ -62,7 +56,7 @@ def resolve_halo_k(model: IonicModel, halo_k: Optional[int]) -> int:
     one exchange of dt_per_step ghost slices per outer step; an explicit
     `halo_k` splits the outer step into dt_per_step/halo_k groups of
     halo_k substeps, each preceded by a halo_k-slice exchange — smaller
-    shards-per-chip and smaller fused blocks for more ICI messages.
+    shards-per-device and smaller fused blocks for more halo messages.
     Requires a model whose substeps are uniform (IonicModel
     .has_uniform_substeps; BR's skip groups and Courtemanche's fast/slow
     split are not splittable at arbitrary boundaries)."""
@@ -97,7 +91,6 @@ def make_volume_spmd_chunk(
     phase: Optional[np.ndarray] = None,
     dz_ratio: float = 1.0,
     fiber: Optional[tuple] = None,
-    use_kernel: bool = False,
     rotor: bool = False,
     tau_steps: int = 0,
     rotor_v_star: float = 0.5,
@@ -130,7 +123,6 @@ def make_volume_spmd_chunk(
     check_volume_shards(depth, n_shards, k)
     d_local = depth // n_shards
     ext_d = d_local + 2 * k
-    cfg = model.cfg
     pot_key = model.pot_key
     probe_row, probe_col = model.probe_pixel
     zmid = depth // 2
@@ -148,14 +140,6 @@ def make_volume_spmd_chunk(
     ev_masks = [jnp.asarray(m) for _, m in fire]
     ev_steps = [int(t) for t, _ in fire]
     has_ecg = ecg_weights is not None
-
-    kern = None
-    if use_kernel:
-        kern = make_volume_block_kernel(
-            model, ext_d, depth, has_phase=has_phase, dz_ratio=dz_ratio,
-            has_fiber=has_fiber,
-            substeps=(k if n_groups > 1 else None),
-        )
 
     def extend_k(v, kk):
         n = lax.axis_size(axis)
@@ -184,36 +168,12 @@ def make_volume_spmd_chunk(
             i += 1
         masks_local = extras[i:]
 
-        h = cfg.height
         zstart = lax.axis_index(axis) * d_local - k
         zg = zstart + lax.broadcasted_iota(jnp.int32, (ext_d, 1, 1), 0)
         fiber_ext = (
             tuple(extend(f) for f in fiber_local) if has_fiber else None
         )
-        if use_kernel:
-            # static/per-chunk kernel inputs for the FLAT block layout:
-            # row-within-slice plane, traced global slice indices, tiled
-            # phase, and H-repeated halo-extended fiber tensors
-            rrow_c = jnp.asarray(
-                np.tile(np.arange(h, dtype=np.int32), ext_d)
-                .reshape(ext_d * h, 1)
-            )
-            zidx_g = (zstart + jnp.asarray(
-                np.repeat(np.arange(ext_d, dtype=np.int32), h)
-                .reshape(ext_d * h, 1)
-            ))
-            phase_flat = (
-                jnp.tile(phase_local, (ext_d, 1)) if has_phase else None
-            )
-            fiber_flat = (
-                tuple(jnp.repeat(f[:, :, 0], h, axis=0)
-                      for f in fiber_ext)
-                if has_fiber else None
-            )
-        else:
-            geom = zblock_geometry(
-                zg, depth, phase_local, dz_ratio, fiber_ext
-            )
+        geom = zblock_geometry(zg, depth, phase_local, dz_ratio, fiber_ext)
 
         ecg_lap = None
         if has_ecg:
@@ -253,9 +213,7 @@ def make_volume_spmd_chunk(
 
         def advance(s):
             ext = {kk: extend(v) for kk, v in s.items()}
-            if use_kernel:
-                ext = kern(ext, rrow_c, zidx_g, phase_flat, fiber_flat)
-            elif n_groups > 1:
+            if n_groups > 1:
                 ext = model.substep_group(ext, geom, k)
             else:
                 ext = model.step(ext, geom)
@@ -272,9 +230,7 @@ def make_volume_spmd_chunk(
             out = {"v": probe_v(s)}
             if has_ecg:
                 out["ecg"] = lax.psum(
-                    jnp.einsum("dhw,edhw->e", ecg_lap(s[pot_key]),
-                               ew_local),
-                    axis,
+                    ecg_sample(ecg_lap(s[pot_key]), ew_local), axis
                 )
             if rotor:
                 from fib_tf_tpu.ops import stencil

@@ -1,32 +1,44 @@
-"""Persistent XLA/Mosaic compilation cache.
+"""Persistent XLA compilation cache.
 
-The fused Pallas kernels can take minutes to compile (Mosaic unrolls the
-whole multi-substep body); the persistent cache makes that a one-time cost
-per machine.  Disable with FIB_NO_COMPILE_CACHE=1.
+Where `JAX_COMPILATION_CACHE_DIR` is set, JAX reads it itself and this
+module sets no directory.  Otherwise the cache lives at the fixed
+`<checkout>/.jax_cache`: a fixed path, so that every run from one
+checkout finds what an earlier run compiled.  Disable with
+FIB_NO_COMPILE_CACHE=1.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Optional
 
-_DEFAULT_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(__file__))),
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.realpath(__file__)))),
     ".jax_cache",
 )
 
 _enabled = False
 
 
-def enable(cache_dir: str | None = None):
+def cache_dir() -> Optional[str]:
+    """The directory `enable` configures, or None where JAX takes it
+    from `JAX_COMPILATION_CACHE_DIR`."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return DEFAULT_DIR
+
+
+def enable() -> None:
+    """Turn the persistent cache on for this process (idempotent).
+    Call before the first compilation: JAX opens the cache once."""
     global _enabled
     if _enabled or os.environ.get("FIB_NO_COMPILE_CACHE"):
         return
-    import jax
+    path = cache_dir()
+    if path is not None:
+        import jax
 
-    cache_dir = cache_dir or os.environ.get(
-        "FIB_COMPILE_CACHE_DIR", _DEFAULT_DIR
-    )
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+        os.makedirs(path, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", path)
     _enabled = True

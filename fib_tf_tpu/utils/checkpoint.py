@@ -53,7 +53,9 @@ def load_state(path: str) -> Tuple[Dict[str, np.ndarray], Optional[SimConfig]]:
             if raw.get("mesh_shape") is not None:
                 raw["mesh_shape"] = tuple(raw["mesh_shape"])
             raw["mesh_axes"] = tuple(raw.get("mesh_axes", ("x", "y")))
-            cfg = SimConfig(**raw)
+            # from_dict drops fields this version no longer has (e.g.
+            # the retired kernel options), so old checkpoints still load
+            cfg = SimConfig.from_dict(raw)
     return state, cfg
 
 

@@ -10,6 +10,7 @@ ctypes (no pybind11 in the image).
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 from typing import Optional
@@ -20,13 +21,23 @@ NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "native")
 _LIB: Optional[ctypes.CDLL] = None
 
 
-def build(force: bool = False) -> str:
-    """Build the native toolchain with make; returns the .so path."""
-    so = os.path.join(NATIVE_DIR, "libfibtable.so")
-    if force or not os.path.exists(so):
+def build() -> str:
+    """Build the native toolchain from its committed sources with make
+    (incremental, so a no-op when up to date); returns the .so path.
+    A file lock serializes concurrent callers (parallel test workers),
+    which would otherwise race on the same outputs."""
+    with open(os.path.join(NATIVE_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
         subprocess.run(["make", "-C", NATIVE_DIR], check=True,
                        capture_output=True)
-    return so
+    return os.path.join(NATIVE_DIR, "libfibtable.so")
+
+
+def executable(name: str) -> str:
+    """Path of a native 0D simulator (`cell_sim`, `cell_sim_fb`), built
+    first."""
+    build()
+    return os.path.join(NATIVE_DIR, name)
 
 
 def load() -> ctypes.CDLL:

@@ -6,7 +6,6 @@ without implementing it; here it is a working opt-in for the
 explicit-Euler state updates (all four Fenton planes; BR's V and Ca).
 """
 
-import os
 import subprocess
 
 import jax
@@ -71,9 +70,9 @@ class TestFentonAB2:
     def test_matches_native_cell_sim(self):
         """cell_sim_fb --ab2 is an independent C++ AB2 implementation with
         the same bootstrap convention."""
-        exe = os.path.join(native.NATIVE_DIR, "cell_sim_fb")
-        if not os.path.exists(exe):
-            pytest.skip("native cell_sim_fb not built")
+        if not native.native_available():
+            pytest.skip("native toolchain not buildable")
+        exe = native.executable("cell_sim_fb")
         out = subprocess.run(
             [exe, "fenton", "100", "0.1", "0.3", "--ab2"],
             capture_output=True, text=True, check=True,
@@ -119,9 +118,9 @@ class TestBeelerReuterAB2:
         assert err_ab2 < err_euler / 1.5
 
     def test_matches_native_cell_sim(self):
-        exe = os.path.join(native.NATIVE_DIR, "cell_sim_fb")
-        if not os.path.exists(exe):
-            pytest.skip("native cell_sim_fb not built")
+        if not native.native_available():
+            pytest.skip("native toolchain not buildable")
+        exe = native.executable("cell_sim_fb")
         out = subprocess.run(
             [exe, "br", "100", "0.1", "-30", "--skip", "--ab2"],
             capture_output=True, text=True, check=True,
@@ -290,28 +289,6 @@ class TestAB2EngineIntegration:
             assert model.state_keys() == tuple(
                 sorted(model.initial_state(s1=False).keys())
             ), model
-
-
-def test_forced_pallas_guards(monkeypatch):
-    from fib_tf_tpu.engine import Simulation
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    sim = Simulation(Courtemanche(SimConfig(
-        width=512, height=512, table=True, kernel="pallas"))).define()
-    with pytest.raises(ValueError, match="Mosaic"):
-        sim._use_pallas()
-    # unaligned grids are no longer rejected: the whole-grid kernel runs
-    # on (8,128)-padded planes (VERDICT r2 #3), so forcing pallas at
-    # 100x100 is now accepted...
-    sim2 = Simulation(BeelerReuter(SimConfig(
-        width=100, height=100, kernel="pallas"))).define()
-    assert sim2._use_pallas()
-    # ...but an unaligned grid whose padded state also blows the
-    # whole-grid VMEM budget still has no lowerable kernel
-    sim3 = Simulation(BeelerReuter(SimConfig(
-        width=2000, height=2100, kernel="pallas"))).define()
-    with pytest.raises(ValueError, match="padded state exceeds"):
-        sim3._use_pallas()
 
 
 def test_cheby_fold_cadence_guard():

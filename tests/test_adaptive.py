@@ -177,15 +177,6 @@ class TestConfigValidation:
         with pytest.raises(ValueError):
             SimConfig(adaptive_dv=25.0, adaptive_depth=0)
 
-    def test_engine_rejects_forced_pallas(self):
-        from fib_tf_tpu.engine.simulation import Simulation
-
-        cfg = SimConfig(width=16, height=16, duration=1,
-                        adaptive_dv=25.0, kernel="pallas")
-        sim = Simulation(Courtemanche(cfg))
-        with pytest.raises(ValueError, match="XLA path"):
-            sim._use_pallas()
-
 
 class TestAdaptiveGSPMD:
     """adaptive_dv partitions under GSPMD (VERDICT r3 #7): the
@@ -222,13 +213,12 @@ class TestAdaptiveGSPMD:
 
 
 class TestEngineIntegration:
-    def test_engine_runs_adaptive_on_xla_path(self):
+    def test_engine_runs_adaptive(self):
         from fib_tf_tpu.engine.simulation import Simulation
 
         cfg = SimConfig(width=16, height=16, dt=0.1, duration=4,
                         dt_per_plot=1, adaptive_dv=25.0)
         m = Fenton4v(cfg)
         sim = Simulation(m).define()
-        assert not sim._use_pallas()
         out = sim.simulate()
         assert np.isfinite(out.probes["v"]).all()

@@ -64,7 +64,7 @@ class TestRun:
         rc = cli.main([
             "run", "--model", "tp06", "--width", "48", "--height", "8",
             "--duration", "2", "--cell-type", "transmural",
-            "--cell-type-bands", "0.3,0.7", "--kernel", "xla",
+            "--cell-type-bands", "0.3,0.7",
         ])
         assert rc == 0
         rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -76,29 +76,12 @@ class TestRun:
         cycle detector fires later)."""
         monkeypatch.chdir(tmp_path)
         args = ["run", "--model", "fenton", "--width", "64",
-                "--height", "64", "--duration", "30", "--kernel", "xla"]
+                "--height", "64", "--duration", "30"]
         cli.main(args)
         base = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         cli.main(args + ["--fibrosis", "0.3,0.7,1"])
         fib = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert fib["cycle_lengths"][0][0] > base["cycle_lengths"][0][0]
-
-    def test_warmup(self, tmp_path, monkeypatch, capsys):
-        """warmup compiles+runs the requested kernel families (interpret
-        mode on CPU) and prints per-kernel timings (VERDICT r3 #6)."""
-        monkeypatch.chdir(tmp_path)
-        rc = cli.main(["warmup", "--model", "fenton", "--size", "32",
-                       "--kernels", "whole,block"])
-        assert rc == 0
-        out = capsys.readouterr().out
-        assert "whole-grid kernel:" in out
-        assert "spmd block kernel:" in out
-
-    def test_warmup_bad_family(self):
-        import pytest
-
-        with pytest.raises(SystemExit):
-            cli.main(["warmup", "--kernels", "tiled,nope"])
 
     def test_run_gscale(self, tmp_path, monkeypatch, capsys):
         """--gscale bakes channel-block factors into the run; the
@@ -118,14 +101,6 @@ class TestRun:
             cli.main(["run", "--model", "fenton", "--width", "32",
                       "--height", "32", "--duration", "5",
                       "--gscale", "g_Kr=0.5"])
-
-    def test_warmup_gscale_skips_unsupported(self, tmp_path, monkeypatch,
-                                             capsys):
-        monkeypatch.chdir(tmp_path)
-        rc = cli.main(["warmup", "--model", "fenton", "--size", "32",
-                       "--kernels", "whole", "--gscale", "g_Kr=0.5"])
-        assert rc == 0
-        assert "skipped (no scalable channel" in capsys.readouterr().out
 
     def test_mesh_spec_rejected(self, tmp_path, monkeypatch):
         import pytest

@@ -39,9 +39,15 @@ class TestValidation:
         with pytest.raises(ValueError):
             SimConfig(dt=0.0)
 
-    def test_bad_kernel(self):
-        with pytest.raises(ValueError):
-            SimConfig(kernel="cuda")
+    def test_from_dict_drops_removed_kernel_keys(self):
+        """Saved configs from before the step had one implementation
+        still load: from_dict ignores the retired kernel knobs."""
+        cfg = SimConfig.from_dict({"width": 64, "height": 32,
+                                   "kernel": "pallas",
+                                   "substeps_per_launch": 2})
+        assert (cfg.width, cfg.height) == (64, 32)
+        assert not hasattr(cfg, "kernel")
+        assert not hasattr(cfg, "substeps_per_launch")
 
     def test_fiber_flags_must_pair(self):
         import pytest

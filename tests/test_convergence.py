@@ -22,7 +22,7 @@ The max pointwise error concentrates at the upstroke (a sub-substep
 timing shift at ~100-400 V/s is several mV) — that is a phase error the
 mean/APD metrics bound physically, so no pointwise upstroke pin.
 
-Measured observed orders (docs/OPTIMIZATIONS.md §15): fenton 1.02,
+Measured observed orders (CPU, float32): fenton 1.02,
 br (direct rates) 1.12, lr1 0.99, tp06 1.14; court 0.63 (its hard rate branches at
 fixed voltages make crossing times quantize to substeps, shaving the
 observed order below 1 — the error MAGNITUDE still shrinks ~1.5x per

@@ -7,7 +7,7 @@ the compiled step, so the contract under test is:
 
   * a factor of exactly 1.0 is BITWISE the unscaled model (the default
     path carries zero extra ops);
-  * factors compose with the Pallas kernels, per-pixel heterogeneity
+  * factors compose with the engine's scan, per-pixel heterogeneity
     planes, and chronic remodeling with no per-path plumbing;
   * the classic 0D pharmacology directions come out right: IKr block
     prolongs APD (hERG/dofetilide class), ICaL block shortens it
@@ -136,19 +136,23 @@ class TestTraceTimeFolding:
         blocked = _step_once(Fenton4v(cfg.replace(g_scale={"g_fi": 0.5})))
         assert np.abs(base["u"] - blocked["u"]).max() > 1e-6
 
-    def test_kernel_matches_xla_under_block(self):
-        """The factors fold into the fused Mosaic body exactly as into
-        the XLA step (interpret-mode kernel on CPU)."""
-        from fib_tf_tpu.ops.pallas_step import make_pallas_step
+    def test_engine_matches_step_under_block(self):
+        """The factors fold into the engine's compiled scan exactly as
+        into a bare jitted model step."""
+        from fib_tf_tpu.engine import Simulation
 
         cfg = SimConfig(width=16, height=16, dt=0.1, duration=1,
-                        cheby=True, g_scale={"g_s": 0.6, "g_K1": 0.8})
+                        dt_per_plot=5, cheby=True,
+                        g_scale={"g_s": 0.6, "g_K1": 0.8})
         m = BeelerReuter(cfg)
         st = {k: jnp.asarray(v) for k, v in m.initial_state().items()}
-        want = jax.device_get(jax.jit(lambda s: m.step(s, GEOM))(st))
-        got = jax.device_get(make_pallas_step(m)(st))
-        for k in want:
-            np.testing.assert_allclose(got[k], want[k], atol=2e-5)
+        step = jax.jit(lambda s: m.step(s, GEOM))
+        for _ in range(cfg.samples(m.dt_per_step)):
+            st = step(st)
+        got = Simulation(m).define().simulate().state
+        for k in st:
+            np.testing.assert_allclose(got[k], np.asarray(st[k]),
+                                       rtol=1e-6, atol=1e-6, err_msg=k)
 
     def test_composes_with_chronic_plane(self):
         """Dose x substrate: a CONSTANT chronic plane + g_Kr block equals
@@ -314,10 +318,9 @@ class TestSpatialDose:
 class TestShardedDrug:
     """The dose factors are model attributes closed over by every
     compiled path, so sharded == unsharded must hold with a block
-    installed (wide-halo shard_map + kernel, the engine's measured-best
-    mesh path)."""
+    installed (wide-halo shard_map, the engine's default mesh path)."""
 
-    def test_wide_halo_kernel_matches_unsharded(self):
+    def test_wide_halo_matches_unsharded(self):
         from fib_tf_tpu.parallel import make_mesh, shard_state
         from fib_tf_tpu.parallel.spmd import make_spmd_chunk
 
@@ -333,8 +336,7 @@ class TestShardedDrug:
             lambda s: jax.lax.scan(body, s, None, length=5)[0])(st))
 
         mesh = make_mesh()  # 8 virtual devices
-        chunk = make_spmd_chunk(m, mesh, length=5, wide_halo=True,
-                                use_kernel=True)
+        chunk = make_spmd_chunk(m, mesh, length=5, wide_halo=True)
         got, _ = chunk(shard_state(m.initial_state(), mesh))
         for k in want:
             np.testing.assert_allclose(

@@ -12,7 +12,7 @@ from fib_tf_tpu.engine.observers import (
     fibrillation_density,
     phase_weighted_mean,
 )
-from fib_tf_tpu.models import BeelerReuter, Fenton4v
+from fib_tf_tpu.models import Fenton4v
 
 
 def small_cfg(**kw):
@@ -460,13 +460,9 @@ class TestEnsemble:
         assert final["u"][1].max() < 0.1
 
     def test_adaptive_members_run_on_xla_path(self):
-        """adaptive_dv ensembles fall back to vmapped XLA under 'auto'
-        (the step-doubling cond can't trace into the Mosaic kernel) and
-        reject a forced kernel='pallas' — mirroring Simulation's rule.
-        Under vmap the cond lowers to select (both branches execute),
-        value-identical to the per-member cond."""
-        import pytest as _pytest
-
+        """adaptive_dv ensembles run the vmapped step: under vmap the
+        cond lowers to select (both branches execute), value-identical
+        to the per-member cond."""
         from fib_tf_tpu.engine.ensemble import run_ensemble, stack_states
 
         cfg = small_cfg(duration=5).replace(adaptive_dv=1e9,
@@ -479,8 +475,6 @@ class TestEnsemble:
         for k in want:
             np.testing.assert_allclose(final[k], want[k],
                                        rtol=1e-6, atol=1e-8)
-        with _pytest.raises(ValueError, match="XLA path"):
-            run_ensemble(model, stacked, n_outer=1, kernel="pallas")
 
     def test_sharded_over_mesh(self):
         from fib_tf_tpu.engine.ensemble import run_ensemble, stack_states
@@ -496,10 +490,9 @@ class TestEnsemble:
         for i in range(1, 8):
             np.testing.assert_array_equal(final["u"][0], final["u"][i])
 
-    def test_sharded_kernel_matches_unmeshed_xla(self):
-        """mesh + kernel='pallas' runs the vmapped kernel inside
-        shard_map over the member axis (GSPMD can't partition
-        pallas_call); results match the unmeshed XLA path."""
+    def test_sharded_matches_unmeshed(self):
+        """The member axis sharded over the mesh, with per-member
+        events: results match the unmeshed run."""
         from fib_tf_tpu.engine.ensemble import (
             EnsembleEvent, run_ensemble, stack_states,
         )
@@ -511,12 +504,9 @@ class TestEnsemble:
         ev = EnsembleEvent(
             step=np.array([1, 2, 3, 4, 5, 99, 99, 99]), loc="luq", v=1.0
         )
-        f_ref, p_ref = run_ensemble(
-            model, stacked, 6, events=[ev], kernel="xla"
-        )
+        f_ref, p_ref = run_ensemble(model, stacked, 6, events=[ev])
         f_mesh, p_mesh = run_ensemble(
-            model, stacked, 6, events=[ev], kernel="pallas",
-            mesh=make_mesh(),
+            model, stacked, 6, events=[ev], mesh=make_mesh(),
         )
         for k in f_ref:
             np.testing.assert_allclose(
@@ -527,7 +517,7 @@ class TestEnsemble:
     def test_mesh_pads_uneven_batch(self):
         """n=5 members on an 8-device mesh: the batch is padded to the
         shard multiple with dummy members and every output is cropped
-        back — both the GSPMD-XLA and shard_map-kernel paths."""
+        back."""
         from fib_tf_tpu.engine.ensemble import run_ensemble, stack_states
         from fib_tf_tpu.parallel import make_mesh
 
@@ -536,20 +526,12 @@ class TestEnsemble:
         stacked = stack_states(
             [model.initial_state(s1=(i % 2 == 0)) for i in range(5)]
         )
-        f_ref, p_ref = run_ensemble(model, stacked, 4, kernel="xla")
-        mesh = make_mesh()
-        for kern in ("xla", "pallas"):
-            f, p = run_ensemble(
-                model, stacked, 4, mesh=mesh, kernel=kern
-            )
-            assert f["u"].shape == (5, cfg.height, cfg.width)
-            assert p.shape == (5, 4)
-            np.testing.assert_allclose(
-                f["u"], f_ref["u"], rtol=1e-5, atol=1e-6, err_msg=kern
-            )
-            np.testing.assert_allclose(
-                p, p_ref, rtol=1e-5, atol=1e-6, err_msg=kern
-            )
+        f_ref, p_ref = run_ensemble(model, stacked, 4)
+        f, p = run_ensemble(model, stacked, 4, mesh=make_mesh())
+        assert f["u"].shape == (5, cfg.height, cfg.width)
+        assert p.shape == (5, 4)
+        np.testing.assert_allclose(f["u"], f_ref["u"], rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(p, p_ref, rtol=1e-5, atol=1e-6)
 
     def test_event_fires_at_per_member_step(self):
         from fib_tf_tpu.engine.ensemble import (
@@ -611,79 +593,6 @@ class TestEnsemble:
         assert probes["mean_u"].shape == (2, 4)
         assert np.isfinite(probes["mean_u"]).all()
 
-    def test_kernel_path_matches_xla(self):
-        """kernel='pallas' (interpret mode on CPU) == the vmapped-XLA
-        path, aligned grid, with per-member events."""
-        from fib_tf_tpu.engine.ensemble import (
-            EnsembleEvent, run_ensemble, stack_states,
-        )
-
-        cfg = small_cfg(width=128, height=16, duration=5)
-        model = Fenton4v(cfg)
-        stacked = stack_states([model.initial_state(s1=True)] * 2)
-        ev = EnsembleEvent(step=np.array([2, 99]), loc="luq", v=1.0)
-        out = {}
-        for kern in ("xla", "pallas"):
-            out[kern] = run_ensemble(
-                model, stacked, 6, events=[ev], kernel=kern
-            )
-        for k in out["xla"][0]:
-            np.testing.assert_allclose(
-                out["pallas"][0][k], out["xla"][0][k],
-                rtol=1e-5, atol=1e-6, err_msg=k,
-            )
-        np.testing.assert_allclose(
-            out["pallas"][1], out["xla"][1], rtol=1e-5, atol=1e-6
-        )
-
-    def test_kernel_path_unaligned_pads(self):
-        """48x48 is not (8,128)-aligned: the kernel path pads, crops, and
-        still matches XLA on the true grid."""
-        from fib_tf_tpu.engine.ensemble import run_ensemble, stack_states
-
-        cfg = small_cfg(duration=5)
-        model = Fenton4v(cfg)
-        stacked = stack_states([model.initial_state(s1=True)] * 2)
-        f_xla, _ = run_ensemble(model, stacked, 5, kernel="xla")
-        f_k, _ = run_ensemble(model, stacked, 5, kernel="pallas")
-        assert f_k["u"].shape == f_xla["u"].shape
-        np.testing.assert_allclose(
-            f_k["u"], f_xla["u"], rtol=1e-5, atol=1e-6
-        )
-
-    def test_auto_kernel_falls_back_for_custom_probe_on_padded_grid(
-            self, monkeypatch):
-        """48x48 needs padding; a custom (possibly full-plane) probe under
-        'auto' must fall back to XLA rather than expose the pad region —
-        on this CPU host the run only completes BECAUSE the fallback
-        engaged (the kernel path would try a real Mosaic lowering once
-        default_backend claims tpu)."""
-        import jax
-
-        from fib_tf_tpu.engine.ensemble import run_ensemble, stack_states
-
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        cfg = small_cfg(duration=5)
-        model = Fenton4v(cfg)
-        stacked = stack_states([model.initial_state(s1=True)] * 2)
-        final, probes = run_ensemble(
-            model, stacked, 3, probe=lambda s: s["u"].max()
-        )
-        assert probes.shape == (2, 3)
-        assert np.isfinite(final["u"]).all()
-
-    def test_kernel_rejects_per_member_phase(self):
-        import pytest
-
-        from fib_tf_tpu.engine.ensemble import run_ensemble, stack_states
-
-        cfg = small_cfg(duration=5)
-        model = Fenton4v(cfg)
-        stacked = stack_states([model.initial_state(s1=True)] * 2)
-        phase = np.ones((2, cfg.height, cfg.width), np.float32)
-        with pytest.raises(ValueError, match="per-member phase"):
-            run_ensemble(model, stacked, 2, phase=phase, kernel="pallas")
-
     def test_s2_scan_classifies(self):
         from fib_tf_tpu.engine.ensemble import s2_scan
 
@@ -708,29 +617,3 @@ class TestFailureDetection:
         bad["u"][0, 0] = np.nan
         with pytest.raises(FloatingPointError):
             sim.simulate(state=bad)
-
-
-class TestWholeGridLaunchDefaults:
-    """Per-model whole-grid substeps_per_launch defaults (r5,
-    OPTIMIZATIONS §16): BR's multi-rate skip body measured ~3% faster
-    split into single-substep launches; everyone else keeps the
-    monolith.  An explicit user setting always wins."""
-
-    def _sim(self, model_cls, **kw):
-        return Simulation(model_cls(small_cfg(**kw)))
-
-    def test_br_skip_defaults_to_spl1(self):
-        sim = self._sim(BeelerReuter, diff=0.809, cheby=True, skip=True)
-        assert sim._whole_grid_spl() == 1
-
-    def test_br_without_skip_stays_monolith(self):
-        sim = self._sim(BeelerReuter, diff=0.809, cheby=True)
-        assert sim._whole_grid_spl() is None
-
-    def test_fenton_stays_monolith(self):
-        assert self._sim(Fenton4v)._whole_grid_spl() is None
-
-    def test_explicit_setting_wins(self):
-        sim = self._sim(BeelerReuter, diff=0.809, skip=True,
-                        substeps_per_launch=5)
-        assert sim._whole_grid_spl() == 5

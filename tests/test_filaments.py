@@ -131,9 +131,9 @@ class TestIntegrationWithRunVolume:
     def test_census_consumes_run_volume_frames(self):
         """census_movie accepts run_volume's [T, D, H, W] frame stack
         directly.  (A GENUINE rotating scroll core needs an in-plane
-        domain comparable to the fenton wavelength, ~400 cells — a real-
-        TPU-scale run; examples/scroll_wave.py at its default size is
-        that demonstration.  A 48-cell CPU box only re-excites globally,
+        domain comparable to the fenton wavelength, ~400 cells — an
+        accelerator-scale run; examples/scroll_wave.py at its default
+        size is that demonstration.  A 48-cell CPU box only re-excites globally,
         so this test pins the data path, not the physics.)"""
         import jax
 

@@ -1,6 +1,6 @@
 """Golden-trace regression tests: 0D action potentials must reproduce the
 pinned traces in tests/golden/ to 1e-3 relative tolerance (SURVEY.md §4b;
-BASELINE.json's trace-fidelity requirement applied as a regression pin).
+the reference's trace-fidelity requirement applied as a regression pin).
 
 Regenerate deliberately with tools/make_goldens.py."""
 

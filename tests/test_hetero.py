@@ -5,9 +5,9 @@ phase-field hole (ionic.py:83-105).  Two generalizations land here:
 
   * the per-pixel RELATIVE diffusion map (fibrosis) — operator
     identities (dmap ≡ 1 reduces EXACTLY to the existing phase-field
-    forms on every implementation: stencil / vmem shifts /
-    block-geometry masks / halo exchange), kernel == XLA and
-    sharded == unsharded parity, and the sqrt(d) CV physics;
+    forms on every implementation: stencil / block-geometry masks /
+    halo exchange), engine == model-step and sharded == unsharded
+    parity, and the sqrt(d) CV physics;
   * per-pixel PARAMETER planes riding the state dict as _p_* keys
     (models/base.set_het) — tp06's transmural epi/endo/M wedge and
     court's regional chronic-AF remodeling — same parity ladder, plus
@@ -26,11 +26,6 @@ from fib_tf_tpu.config import SimConfig
 from fib_tf_tpu.engine import Simulation
 from fib_tf_tpu.models import BeelerReuter, Fenton4v, grid_geometry
 from fib_tf_tpu.ops import stencil
-from fib_tf_tpu.ops.pallas_step import (
-    make_pallas_step,
-    vmem_anisotropic_laplace,
-    vmem_laplace,
-)
 
 
 def pad1(a):
@@ -82,15 +77,30 @@ class TestOperator:
             rtol=1e-5, atol=1e-6,
         )
 
-    def test_vmem_matches_stencil(self):
+    @staticmethod
+    def _block(h, w, cols=False, **kw):
+        """block_geometry on an un-extended block: global row (and, with
+        `cols`, column) indices of the true grid."""
+        rg = jax.lax.broadcasted_iota(jnp.int32, (h, 1), 0)
+        if not cols:
+            return stencil.block_geometry(rg, h, **kw)
+        cg = jax.lax.broadcasted_iota(jnp.int32, (1, w), 1)
+        return stencil.block_geometry(rg, h, cg, w, **kw)
+
+    def test_block_geometry_2d_matches_stencil(self):
+        """The 2D-mesh form (global column masks) with a dmap == the
+        stencil form, Laplacian and boundary rewrite."""
         x = jnp.asarray(rand_field((16, 24), 4))
         d = smooth_dmap(16, 24)
+        geom = self._block(16, 24, cols=True, dmap_ext=jnp.asarray(d))
         want = stencil.laplace(x, dmap_padded=jnp.asarray(pad1(d)))
-        got = vmem_laplace(x, dmap=jnp.asarray(d))
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(np.asarray(geom.laplace(x)),
+                                   np.asarray(want), rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(
+            np.asarray(geom.enforce_boundary(x)),
+            np.asarray(stencil.enforce_boundary(x)))
 
-    def test_vmem_matches_stencil_with_phase(self):
+    def test_block_geometry_with_phase_matches_stencil(self):
         x = jnp.asarray(rand_field((16, 16), 5))
         d = smooth_dmap(16, 16)
         phase = stencil.add_hole_to_phase_field(None, 16, 16, 8, 8, 3)
@@ -98,27 +108,27 @@ class TestOperator:
             x, phase_padded=jnp.asarray(pad1(phase)),
             dmap_padded=jnp.asarray(pad1(d)),
         )
-        got = vmem_laplace(x, phase=jnp.asarray(phase), dmap=jnp.asarray(d))
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=1e-4, atol=1e-4)
+        geom = self._block(16, 16, phase_ext=jnp.asarray(phase),
+                           dmap_ext=jnp.asarray(d))
+        np.testing.assert_allclose(np.asarray(geom.laplace(x)),
+                                   np.asarray(want), rtol=1e-4, atol=1e-4)
 
-    def test_vmem_anisotropic_matches_stencil(self):
+    def test_block_geometry_anisotropic_matches_stencil(self):
         x = jnp.asarray(rand_field((16, 24), 6))
         d = smooth_dmap(16, 24)
-        dxx, dxy, dyy = stencil.fiber_tensor(0.5, 0.3)
+        fiber = stencil.fiber_tensor(0.5, 0.3)
         want = stencil.anisotropic_laplace(
-            x, dxx, dxy, dyy, dmap_padded=jnp.asarray(pad1(d))
+            x, *fiber, dmap_padded=jnp.asarray(pad1(d))
         )
-        got = vmem_anisotropic_laplace(
-            x, dxx, dxy, dyy, dmap=jnp.asarray(d)
-        )
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=1e-4, atol=1e-4)
+        geom = self._block(16, 24, cols=True, fiber=fiber,
+                           dmap_ext=jnp.asarray(d))
+        np.testing.assert_allclose(np.asarray(geom.laplace(x)),
+                                   np.asarray(want), rtol=1e-4, atol=1e-4)
 
     def test_block_geometry_matches_stencil(self):
-        """block_geometry (padded whole-grid / wide-halo / tiled form)
-        with a dmap on an un-extended block == the stencil form."""
-        from fib_tf_tpu.ops.pallas_tiled import block_geometry
+        """block_geometry (the wide-halo form) with a dmap on an
+        un-extended block == the stencil form."""
+        block_geometry = stencil.block_geometry
 
         h, w = 16, 24
         x = jnp.asarray(rand_field((h, w), 7))
@@ -146,68 +156,7 @@ class TestOperator:
                                     seed=2))
 
 
-class TestKernelParity:
-    def test_whole_grid_kernel_matches_xla(self):
-        cfg = SimConfig(width=32, height=32, dt=0.1, diff=1.5, duration=1)
-        model = Fenton4v(cfg)
-        d = smooth_dmap(32, 32)
-        geom = grid_geometry(dmap=d)
-        state = {k: jnp.asarray(v) for k, v in model.initial_state().items()}
-        want = model.step(model.step(state, geom), geom)
-        pstep = make_pallas_step(model, dmap=d)
-        got = pstep(pstep(state))
-        for k in want:
-            np.testing.assert_allclose(
-                np.asarray(got[k]), np.asarray(want[k]),
-                rtol=1e-4, atol=1e-5, err_msg=k,
-            )
-
-    def test_whole_grid_kernel_phase_and_dmap(self):
-        cfg = SimConfig(width=32, height=32, dt=0.1, diff=1.5, duration=1)
-        model = Fenton4v(cfg)
-        d = smooth_dmap(32, 32)
-        phase = stencil.add_hole_to_phase_field(None, 32, 32, 16, 16, 5)
-        geom = grid_geometry(phase, dmap=d)
-        state = {k: jnp.asarray(v) for k, v in model.initial_state().items()}
-        want = model.step(state, geom)
-        got = make_pallas_step(model, phase=phase, dmap=d)(state)
-        for k in want:
-            np.testing.assert_allclose(
-                np.asarray(got[k]), np.asarray(want[k]),
-                rtol=1e-4, atol=1e-5, err_msg=k,
-            )
-
-    def test_tiled_kernel_matches_xla(self):
-        cfg = SimConfig(width=32, height=64, dt=0.1, diff=0.809,
-                        duration=1, cheby=True, skip=True)
-        model = BeelerReuter(cfg)
-        d = smooth_dmap(64, 32)
-        geom = grid_geometry(dmap=d)
-        state = {k: jnp.asarray(v) for k, v in model.initial_state().items()}
-        want = model.step(state, geom)
-        from fib_tf_tpu.ops.pallas_tiled import make_tiled_pallas_step
-
-        got = make_tiled_pallas_step(model, tile_rows=16, dmap=d)(state)
-        for k in want:
-            np.testing.assert_allclose(
-                np.asarray(got[k]), np.asarray(want[k]),
-                rtol=1e-3, atol=1e-5, err_msg=k,
-            )
-
-    def test_engine_pallas_matches_xla(self):
-        base = dict(width=32, height=32, dt=0.1, diff=0.809, duration=2,
-                    dt_per_plot=10, cheby=True, skip=True)
-        d = stencil.fibrosis_map(32, 32, density=0.3, strength=0.7,
-                                 seed=5, patch=2)
-        res = {}
-        for kern in ("xla", "pallas"):
-            sim = Simulation(BeelerReuter(SimConfig(kernel=kern, **base)))
-            sim.set_diffusion_map(d)
-            res[kern] = sim.define().simulate()
-        np.testing.assert_allclose(res["pallas"].probes["v"],
-                                   res["xla"].probes["v"],
-                                   rtol=1e-4, atol=1e-5)
-
+class TestDiffusionMapValidation:
     def test_set_diffusion_map_validation(self):
         sim = Simulation(Fenton4v(SimConfig(width=32, height=32,
                                             duration=1)))
@@ -277,47 +226,43 @@ class TestHetPlaneValidation:
 
 
 class TestHetPlaneParity:
-    """Per-pixel parameter planes: kernel == XLA, and a CONSTANT plane
-    reproduces the corresponding global flag bitwise."""
+    """Per-pixel parameter planes: the engine's scan == a loop of the
+    model step, and a CONSTANT plane reproduces the corresponding global
+    flag bitwise."""
 
-    def _tp06_states(self, cfg):
-        from fib_tf_tpu.models import TenTusscher06
-
-        m = TenTusscher06(cfg)
-        st = {k: jnp.asarray(v) for k, v in m.initial_state(s1=True).items()}
-        return m, st
-
-    @pytest.mark.parametrize("skip", [False, True])
-    def test_tp06_transmural_kernel_matches_xla(self, skip):
-        cfg = SimConfig(width=32, height=32, dt=0.02, duration=1,
-                        cell_type="transmural", skip=skip)
-        m, st = self._tp06_states(cfg)
+    @staticmethod
+    def _engine_vs_step(m):
         geom = grid_geometry()
-        want = m.step(st, geom)
-        got = make_pallas_step(m)(st)
+        want = {k: jnp.asarray(v) for k, v in m.initial_state().items()}
+        step = jax.jit(lambda s: m.step(s, geom))
+        for _ in range(m.cfg.samples(m.dt_per_step)):
+            want = step(want)
+        got = Simulation(m).define().simulate().state
+        assert set(got) == set(want)
         for k in want:
             np.testing.assert_allclose(
-                np.asarray(got[k]), np.asarray(want[k]),
-                rtol=1e-4, atol=1e-5, err_msg=k,
+                got[k], np.asarray(want[k]), rtol=1e-5, atol=1e-6,
+                err_msg=k,
             )
 
-    def test_court_chronic_plane_kernel_matches_xla(self):
+    @pytest.mark.parametrize("skip", [False, True])
+    def test_tp06_transmural_engine_matches_step(self, skip):
+        from fib_tf_tpu.models import TenTusscher06
+
+        self._engine_vs_step(TenTusscher06(SimConfig(
+            width=32, height=32, dt=0.02, duration=0.4, dt_per_plot=10,
+            cell_type="transmural", skip=skip)))
+
+    def test_court_chronic_plane_engine_matches_step(self):
         from fib_tf_tpu.models import Courtemanche
 
-        m = Courtemanche(SimConfig(width=32, height=32, duration=1))
+        m = Courtemanche(SimConfig(width=32, height=32, duration=2,
+                                   dt_per_plot=10))
         plane = np.zeros((32, 32), np.float32)
         plane[:, 16:] = 1.0
         plane[:, 8:16] = 0.5     # gray-zone border
         m.set_het(chronic=plane)
-        st = {k: jnp.asarray(v) for k, v in m.initial_state().items()}
-        geom = grid_geometry()
-        want = m.step(st, geom)
-        got = make_pallas_step(m)(st)
-        for k in want:
-            np.testing.assert_allclose(
-                np.asarray(got[k]), np.asarray(want[k]),
-                rtol=1e-4, atol=1e-5, err_msg=k,
-            )
+        self._engine_vs_step(m)
 
     def test_court_constant_plane_equals_global_flag(self):
         """chronic ≡ 1 plane == cfg.chronic=True bitwise; ≡ 0 ==
@@ -367,14 +312,12 @@ class TestHetPlaneParity:
 @pytest.mark.slow
 class TestHetPlaneSharded:
     """sharded == unsharded for the _p_* parameter planes on the mesh
-    paths the engine routes to, incl. the per-shard block kernel (the
-    ghost rows of a CONSTANT plane delivered by ppermute are exactly
-    the plane's own values)."""
+    paths the engine routes to (the ghost rows of a CONSTANT plane
+    delivered by ppermute are exactly the plane's own values)."""
 
     @pytest.mark.parametrize("kw", [
         dict(),
         dict(wide_halo=True),
-        dict(wide_halo=True, use_kernel=True),
     ])
     def test_tp06_transmural_1d_mesh(self, kw):
         from fib_tf_tpu.models import TenTusscher06
@@ -416,15 +359,14 @@ class TestHetPlaneSharded:
         # z-banded at (0.25, 0.60) x 8 slices: endo z<2, M 2-4, epi 5+
         assert vs["_p_endo"][0].all() and not vs["_p_endo"][2].any()
         assert vs["s"][0, 0, 0] != vs["s"][7, 0, 0]
-        st1, _, _ = run_volume(m, 8, 5, state=vs, kernel="xla")
+        st1, _, _ = run_volume(m, 8, 5, state=vs)
         assert np.isfinite(np.asarray(st1["V"])).all()
         np.testing.assert_array_equal(np.asarray(st1["_p_g_ks"]),
                                       vs["_p_g_ks"])
         mesh = make_mesh((4,), devices=jax.devices()[:4])
-        st2, _, _ = run_volume(m, 8, 5, state=vs, mesh=mesh,
-                               kernel="xla")
+        st2, _, _ = run_volume(m, 8, 5, state=vs, mesh=mesh)
         st3, _, _ = run_volume(m, 8, 5, state=vs, mesh=mesh,
-                               wide_halo=True, kernel="xla", halo_k=2)
+                               wide_halo=True, halo_k=2)
         for k in st1:
             np.testing.assert_allclose(
                 np.asarray(st2[k]), np.asarray(st1[k]),
@@ -536,7 +478,7 @@ class TestPhysics:
         and CV ~ sqrt(D) for excitable media)."""
         h, w = 16, 256
         cfg = SimConfig(width=w, height=h, dt=0.1, diff=1.5,
-                        duration=600.0, dt_per_plot=10, kernel="xla")
+                        duration=600.0, dt_per_plot=10)
         model = Fenton4v(cfg)
         d = np.ones((h, w), np.float32)
         d[:, w // 2:] = 0.25
@@ -569,7 +511,7 @@ class TestPhysics:
 @pytest.mark.slow
 class TestShardedDmap:
     """sharded == unsharded with a heterogeneous diffusion map, on every
-    mesh path (narrow, wide-halo XLA, wide-halo block kernel, 2D), with
+    mesh path (narrow, wide-halo, 2D), with
     the ECG probe's heterogeneous source term included."""
 
     def _reference(self, model, d, length, ecg=None):
@@ -582,7 +524,6 @@ class TestShardedDmap:
     @pytest.mark.parametrize("kw", [
         dict(),                                  # narrow per-substep halos
         dict(wide_halo=True),                    # K-row exchange
-        dict(wide_halo=True, use_kernel=True),   # per-shard block kernel
     ])
     def test_1d_mesh(self, kw):
         from fib_tf_tpu.parallel import make_mesh, shard_state
@@ -656,7 +597,7 @@ class TestShardedDmap:
         """Config-routed mesh run (mesh_mode auto -> shard_map wide-halo)
         with a fibrosis map == the unsharded engine run."""
         base = dict(width=32, height=64, dt=0.1, diff=0.809, duration=2,
-                    dt_per_plot=10, cheby=True, skip=True, kernel="xla")
+                    dt_per_plot=10, cheby=True, skip=True)
         d = stencil.fibrosis_map(64, 32, density=0.25, strength=0.6,
                                  seed=7, patch=2)
         sim1 = Simulation(BeelerReuter(SimConfig(**base)))

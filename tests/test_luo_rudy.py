@@ -137,55 +137,6 @@ class TestStiffnessMachinery:
         assert float(k1_inf(jnp.float32(0.0))) < 0.01
 
 
-class TestKernelSelection:
-    def test_auto_picks_whole_grid_on_tpu(self, monkeypatch):
-        """'auto' selects the fused whole-grid kernel for lr1 on TPU
-        (measured 33.6 vs 50.1 us/substep at 512², OPTIMIZATIONS §8)
-        within the 32 MB whole-grid budget, and stays XLA above it (the
-        tiled kernel is untried for this compute-bound model)."""
-        import jax
-
-        from fib_tf_tpu.engine import Simulation
-
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        sim = Simulation(LuoRudy91(SimConfig(
-            width=512, height=512, dt=0.02, duration=1))).define()
-        assert sim._use_pallas()
-        # 8 planes * 2048^2 * 4 B = 128 MB >> the 32 MB whole-grid cap
-        big = Simulation(LuoRudy91(SimConfig(
-            width=2048, height=2048, dt=0.02, duration=1))).define()
-        assert not big._use_pallas()
-
-    def test_auto_picks_spmd_block_kernel_on_tpu(self, monkeypatch):
-        """Wide-halo mesh 'auto' runs the per-shard block kernel for lr1
-        (measured 37.0 vs 48.3 us/substep on a 1-device TPU mesh,
-        tools/spmd_bench.py)."""
-        import jax
-        from jax.sharding import Mesh
-
-        from fib_tf_tpu.engine import Simulation
-
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        mesh = Mesh(np.asarray(jax.devices()[:2]).reshape(2), ("rows",))
-        sim = Simulation(
-            LuoRudy91(SimConfig(width=128, height=128, dt=0.02,
-                                duration=1)),
-            mesh=mesh, wide_halo=True)
-        assert sim._spmd_use_kernel()
-
-    def test_auto_picks_ensemble_kernel_on_tpu(self, monkeypatch):
-        """Ensemble 'auto' vmaps the whole-grid kernel for lr1 (measured
-        2.13 vs 3.46 us/substep/member, tools/ensemble_bench.py)."""
-        import jax
-
-        from fib_tf_tpu.engine.ensemble import _ensemble_use_kernel
-
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        model = LuoRudy91(SimConfig(width=128, height=128, dt=0.02,
-                                    duration=1))
-        assert _ensemble_use_kernel(model, "auto", per_member_phase=False)
-
-
 class TestTissue:
     def test_2d_propagation(self):
         from fib_tf_tpu.engine import Simulation
@@ -220,8 +171,7 @@ class TestMultiRateSkip:
     technique (br.py:96-107) to lr1 (VERDICT r3 #2): slow x/d/f advance
     once per outer step at 10 dt = 0.2 ms, fast m/h/j every 0.02 ms
     substep.  Measured 0D: the full AP deviates < 0.01 mV from the
-    uniform-rate trace; TPU: XLA 37.1 vs 49.6 us/substep at 512x512
-    (docs/OPTIMIZATIONS.md §8)."""
+    uniform-rate trace."""
 
     @staticmethod
     def _ap_trace(skip, n_outer=2400):

@@ -234,3 +234,31 @@ class TestCourtDvMax:
         # a generous cap never engages at rest: bit-identical V
         np.testing.assert_array_equal(np.asarray(a["V"]),
                                       np.asarray(b["V"]))
+
+
+class TestStepFori:
+    """`step(unroll=False)` (the identical substeps under lax.fori_loop,
+    models/base.repeat_substeps) is value-identical to the unrolled
+    step at float32 ULP level."""
+
+    @pytest.mark.parametrize("model_cls,extra", [
+        (Fenton4v, {}),
+        (BeelerReuter, {"cheby": True, "skip": True}),
+        (BeelerReuter, {"cheby": False, "skip": False}),
+        (Courtemanche, {}),
+    ])
+    def test_matches_unrolled(self, model_cls, extra):
+        from fib_tf_tpu.models import grid_geometry
+
+        model = model_cls(SimConfig(width=32, height=32, dt=0.1,
+                                    diff=1.5, duration=1, **extra))
+        geom = grid_geometry()
+        a = b = {k: jnp.asarray(v) for k, v in model.initial_state().items()}
+        for _ in range(3):
+            a = jax.jit(lambda s: model.step(s, geom))(a)
+            b = jax.jit(lambda s: model.step(s, geom, unroll=False))(b)
+        for k in a:
+            np.testing.assert_allclose(
+                np.asarray(a[k]), np.asarray(b[k]),
+                rtol=1e-5, atol=1e-7, err_msg=k,
+            )

@@ -332,89 +332,9 @@ class TestShardMapHalo:
             assert probes["v"].shape == (3,)
 
 
-class TestShardBlockKernel:
-    """wide_halo + use_kernel: per-shard fused Pallas block kernel
-    (interpret mode on the CPU mesh) == XLA shard_map == single device."""
-
-    def test_1d_matches(self):
-        from fib_tf_tpu.ops import stencil as st
-
-        for model_cls, extra, with_phase in [
-            (Fenton4v, {}, False),
-            (Fenton4v, {}, True),
-            (BeelerReuter, dict(diff=0.809, cheby=True, skip=True), False),
-        ]:
-            c = cfg(height=128, **extra)
-            model = model_cls(c)
-            phase = (
-                st.add_hole_to_phase_field(None, 128, 64, 32, 64, 10)
-                if with_phase else None
-            )
-            want = reference_run(model, 2, phase=phase)
-            mesh = make_mesh()
-            chunk = make_spmd_chunk(
-                model, mesh, length=2, phase=phase, wide_halo=True,
-                use_kernel=True,
-            )
-            got, probes = chunk(shard_state(model.initial_state(), mesh))
-            for k in want:
-                np.testing.assert_allclose(
-                    np.asarray(got[k]), want[k], rtol=1e-5, atol=1e-5,
-                    err_msg=f"{model.name} phase={with_phase} {k}",
-                )
-            assert probes["v"].shape == (2,)
-
-    def test_2d_matches(self):
-        from fib_tf_tpu.ops import stencil as st
-
-        c = cfg(height=128, width=128)
-        model = Fenton4v(c)
-        phase = st.add_hole_to_phase_field(None, 128, 128, 64, 64, 10)
-        want = reference_run(model, 2, phase=phase)
-        mesh = make_mesh(shape=(2, 2), devices=jax.devices()[:4])
-        chunk = make_spmd_chunk(model, mesh, length=2, phase=phase,
-                                wide_halo=True, use_kernel=True)
-        got, _ = chunk(shard_state(model.initial_state(), mesh))
-        for k in want:
-            np.testing.assert_allclose(
-                np.asarray(got[k]), want[k], rtol=1e-5, atol=1e-5,
-                err_msg=k,
-            )
-
-    def test_requires_wide_halo(self):
-        import pytest
-
-        model = Fenton4v(cfg())
-        with pytest.raises(ValueError, match="wide_halo"):
-            make_spmd_chunk(model, make_mesh(), length=2, use_kernel=True)
-
-    def test_tp06_launch_split_matches(self):
-        """tp06's whitelist entry runs the block kernel split into
-        5-substep launches (the monolithic body compile-diverges on
-        Mosaic; the split compiles AND wins, 79.9 vs 103.2 us/substep —
-        OPTIMIZATIONS §16).  The launch split must not change the math:
-        sharded launch-split kernel == unsharded XLA."""
-        from fib_tf_tpu.models import TenTusscher06
-
-        c = cfg(height=128, dt=0.02, skip=True)
-        model = TenTusscher06(c)
-        want = reference_run(model, 2)
-        chunk = make_spmd_chunk(model, make_mesh(), length=2,
-                                wide_halo=True, use_kernel=True,
-                                substeps_per_launch=5)
-        got, probes = chunk(shard_state(model.initial_state(),
-                                        make_mesh()))
-        for k in want:
-            np.testing.assert_allclose(
-                np.asarray(got[k]), want[k], rtol=1e-5, atol=1e-5,
-                err_msg=f"tp06 spl=5 {k}",
-            )
-        assert probes["v"].shape == (2,)
-
-
 class TestShardedAnisotropy:
-    """fiber tensor on the wide-halo shard_map path (XLA and block-kernel
-    variants) == single-device anisotropic run."""
+    """fiber tensor on the wide-halo shard_map path == single-device
+    anisotropic run."""
 
     def test_wide_halo_aniso_matches(self):
         from fib_tf_tpu.models import grid_geometry as gg
@@ -432,17 +352,14 @@ class TestShardedAnisotropy:
                 length=2)
         )(s0)
         mesh = make_mesh()
-        for use_kernel in (False, True):
-            chunk = make_spmd_chunk(model, mesh, length=2,
-                                    wide_halo=True, use_kernel=use_kernel,
-                                    fiber=fiber)
-            got, _ = chunk(shard_state(model.initial_state(), mesh))
-            for k in want:
-                np.testing.assert_allclose(
-                    np.asarray(got[k]), np.asarray(want[k]),
-                    rtol=1e-5, atol=1e-5,
-                    err_msg=f"kernel={use_kernel} {k}",
-                )
+        chunk = make_spmd_chunk(model, mesh, length=2, wide_halo=True,
+                                fiber=fiber)
+        got, _ = chunk(shard_state(model.initial_state(), mesh))
+        for k in want:
+            np.testing.assert_allclose(
+                np.asarray(got[k]), np.asarray(want[k]),
+                rtol=1e-5, atol=1e-5, err_msg=k,
+            )
 
     def test_fiber_ecg_matches(self):
         """far-field pseudo-ECG on a fiber run rides the shard_map mesh
@@ -485,36 +402,8 @@ class TestShardedAnisotropy:
             Simulation(Fenton4v(c), mesh=make_mesh())
 
 
-class TestSpmdAutoKernel:
-    """'auto' on the mesh+wide_halo path picks the per-shard block kernel
-    on TPU (measured 12.6 vs 25.4 us/substep on a 1-device mesh,
-    tools/spmd_bench.py — VERDICT r2 #1)."""
-
-    def _sim(self, monkeypatch, backend="tpu", **kw):
-        monkeypatch.setattr(jax, "default_backend", lambda: backend)
-        c = cfg(width=128, height=128, **kw)
-        return Simulation(Fenton4v(c), mesh=make_mesh(), wide_halo=True)
-
-    def test_auto_picks_kernel_on_tpu(self, monkeypatch):
-        assert self._sim(monkeypatch)._spmd_use_kernel()
-
-    def test_auto_stays_xla_off_tpu(self, monkeypatch):
-        assert not self._sim(monkeypatch, backend="cpu")._spmd_use_kernel()
-
-    def test_auto_stays_xla_with_table(self, monkeypatch):
-        assert not self._sim(monkeypatch, table=True)._spmd_use_kernel()
-
-    def test_explicit_xla_respected(self, monkeypatch):
-        assert not self._sim(monkeypatch, kernel="xla")._spmd_use_kernel()
-
-    def test_no_kernel_without_wide_halo(self, monkeypatch):
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        sim = Simulation(Fenton4v(cfg()), mesh=make_mesh())
-        assert not sim._spmd_use_kernel()
-
-
 class TestMeshModeRouting:
-    """SimConfig.mesh_shape + mesh_mode reach the measured-best path
+    """SimConfig.mesh_shape + mesh_mode reach the intended path
     (VERDICT r3 #1): 'auto' lands on shard_map wide-halo when the
     model/grid qualify, falls back to GSPMD with a warning naming the
     disqualifier, and 'spmd'/'gspmd' force one."""

@@ -266,3 +266,79 @@ class TestElectrode:
         mask = jnp.asarray(stencil.gaussian_mask(16, 16, 8, 8, 3))
         got = float(stencil.electrogram_sample(img, mask))
         assert got == pytest.approx(float(np.mean(np.asarray(mask))), rel=1e-6)
+
+
+def _pad1(a):
+    return jnp.asarray(np.pad(np.asarray(a, np.float32), 1, mode="reflect"))
+
+
+class TestBlockGeometry:
+    """stencil.block_geometry — the shard_map wide-halo operators — on an
+    un-extended block (global indices = local) equals the plain stencil
+    forms, for every combination of phase field, fiber tensor and
+    diffusion map, with the column masks of a 2D mesh."""
+
+    @pytest.mark.parametrize("dmap", [False, True])
+    @pytest.mark.parametrize("fiber", [False, True])
+    @pytest.mark.parametrize("phase", [False, True])
+    def test_matches_stencil(self, phase, fiber, dmap):
+        import jax
+
+        h, w = 14, 18
+        rng = np.random.RandomState(3)
+        x = jnp.asarray(rng.rand(h, w).astype(np.float32))
+        ph = (stencil.add_hole_to_phase_field(None, h, w, 9, 7, 3)
+              if phase else None)
+        d = (stencil.fibrosis_map(h, w, density=0.4, strength=0.5,
+                                  seed=1, patch=2) if dmap else None)
+        ft = stencil.fiber_tensor(0.7, 0.4) if fiber else None
+        rg = jax.lax.broadcasted_iota(jnp.int32, (h, 1), 0)
+        cg = jax.lax.broadcasted_iota(jnp.int32, (1, w), 1)
+        geom = stencil.block_geometry(
+            rg, h, cg, w, None if ph is None else jnp.asarray(ph), ft,
+            dmap_ext=None if d is None else jnp.asarray(d))
+        pp = None if ph is None else _pad1(ph)
+        dp = None if d is None else _pad1(d)
+        if ft is None:
+            want = stencil.laplace(x, phase_padded=pp, dmap_padded=dp)
+        else:
+            want = stencil.anisotropic_laplace(x, *ft, phase_padded=pp,
+                                               dmap_padded=dp)
+        np.testing.assert_allclose(np.asarray(geom.laplace(x)),
+                                   np.asarray(want), rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(
+            np.asarray(geom.enforce_boundary(x)),
+            np.asarray(stencil.enforce_boundary(x)))
+
+
+class TestZBlockGeometry:
+    """stencil3d.zblock_geometry — the z-sharded wide-halo operators — on
+    an un-extended volume equals laplace3d / enforce_boundary3d."""
+
+    @pytest.mark.parametrize("fiber", [False, True])
+    @pytest.mark.parametrize("phase", [False, True])
+    def test_matches_laplace3d(self, phase, fiber):
+        import jax
+
+        from fib_tf_tpu.ops import stencil3d
+
+        d, h, w = 5, 10, 12
+        rng = np.random.RandomState(4)
+        x = jnp.asarray(rng.rand(d, h, w).astype(np.float32))
+        ph = (stencil.add_hole_to_phase_field(None, h, w, 6, 5, 2)
+              if phase else None)
+        tensors = (stencil3d.fiber_tensors(
+            stencil3d.twist_angles(d, 0.2, 1.0), 0.4) if fiber else None)
+        zg = jax.lax.broadcasted_iota(jnp.int32, (d, 1, 1), 0)
+        geom = stencil3d.zblock_geometry(
+            zg, d, None if ph is None else jnp.asarray(ph), 0.6,
+            None if tensors is None else tuple(
+                jnp.asarray(t).reshape(d, 1, 1) for t in tensors))
+        want = stencil3d.laplace3d(
+            x, phase_padded=None if ph is None else _pad1(ph),
+            dz_ratio=0.6, fiber=tensors)
+        np.testing.assert_allclose(np.asarray(geom.laplace(x)),
+                                   np.asarray(want), rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(
+            np.asarray(geom.enforce_boundary(x)),
+            np.asarray(stencil3d.enforce_boundary3d(x)))

@@ -376,60 +376,6 @@ class TestAlternans:
         assert result.apd_ms[3] == pytest.approx(293.8, abs=8.0)
 
 
-class TestKernelSelection:
-    def test_auto_picks_whole_grid_on_tpu(self, monkeypatch):
-        """'auto' selects the fused whole-grid kernel for tp06 on TPU
-        (measured 84.8 vs 140.0 us/substep at 512², OPTIMIZATIONS §8)
-        within the 32 MB whole-grid budget, and stays XLA above it (no
-        tiled fallback for the compute-bound families)."""
-        from fib_tf_tpu.engine import Simulation
-
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        sim = Simulation(TenTusscher06(SimConfig(
-            width=512, height=512, dt=0.02, duration=1))).define()
-        assert sim._use_pallas()
-        # 19 planes * 2048^2 * 4 B = 318 MB >> the 32 MB whole-grid cap
-        big = Simulation(TenTusscher06(SimConfig(
-            width=2048, height=2048, dt=0.02, duration=1))).define()
-        assert not big._use_pallas()
-
-    def test_auto_picks_ensemble_kernel_on_tpu(self, monkeypatch):
-        """Ensemble 'auto' vmaps the whole-grid kernel for tp06
-        (measured 5.85 vs 9.14 us/substep/member at 16 x 128²,
-        tools/ensemble_bench.py)."""
-        from fib_tf_tpu.engine.ensemble import _ensemble_use_kernel
-
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        model = TenTusscher06(SimConfig(width=128, height=128, dt=0.02,
-                                        duration=1))
-        assert _ensemble_use_kernel(model, "auto",
-                                    per_member_phase=False)
-
-    def test_mesh_auto_picks_launch_split_block_kernel(self, monkeypatch):
-        """Sharded tp06 joined the block-kernel whitelist in r5: the
-        MONOLITHIC body compile-diverges, but split into 5-substep
-        launches it compiles and beats wide-halo XLA (79.9 vs 103.2
-        us/substep with skip on a 1-device mesh — OPTIMIZATIONS §16).
-        'auto' picks it on TPU and the engine applies the measured
-        launch split when cfg.substeps_per_launch is unset."""
-        from jax.sharding import Mesh
-
-        from fib_tf_tpu.engine import Simulation
-
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        mesh = Mesh(np.asarray(jax.devices()[:2]).reshape(2), ("rows",))
-        cfg = SimConfig(width=128, height=128, dt=0.02, duration=1,
-                        skip=True)
-        sim = Simulation(TenTusscher06(cfg), mesh=mesh,
-                         wide_halo=True).define()
-        assert sim._spmd_use_kernel()
-        assert Simulation.SPMD_KERNEL_SPL["tp06"] == 5
-        # an explicit user setting wins over the whitelist default
-        explicit = SimConfig(width=128, height=128, dt=0.02, duration=1,
-                             substeps_per_launch=2)
-        assert explicit.substeps_per_launch == 2
-
-
 class TestConduction:
     def test_plane_wave_cv(self):
         """Plane-wave conduction velocity at diff=0.809: measured 2.22

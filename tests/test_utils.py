@@ -27,6 +27,25 @@ class TestCheckpoint:
         assert got_cfg == cfg
         assert hash(got_cfg) == hash(cfg)
 
+    def test_config_with_retired_fields_loads(self, tmp_path):
+        """A checkpoint whose saved config still carries the retired
+        kernel options loads, the options dropped."""
+        import dataclasses
+        import json
+
+        cfg = SimConfig(width=8, height=8, duration=10)
+        raw = {**dataclasses.asdict(cfg), "kernel": "pallas",
+               "substeps_per_launch": 2}
+        p = str(tmp_path / "old.npz")
+        np.savez(p, **{
+            "state/V": np.zeros((8, 8), np.float32),
+            "config_json": np.frombuffer(json.dumps(raw).encode(),
+                                         dtype=np.uint8),
+        })
+        got, got_cfg = checkpoint.load_state(p)
+        assert got_cfg == cfg
+        assert set(got) == {"V"}
+
     def test_reference_style_npy_dict(self, tmp_path):
         # court_ultra.py:511-519 pattern: np.save of a dict, .item(0) load
         state = {"V": np.ones((4, 4), np.float32)}

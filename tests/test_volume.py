@@ -275,270 +275,11 @@ class TestLiveRotorProbe:
         np.testing.assert_allclose(p_u["v"], p_s["v"], atol=1e-5)
 
 
-class TestVolumeKernel:
-    """The fused whole-volume Pallas kernel (ops/pallas_volume.py) must
-    reproduce the XLA volume path (interpreter mode on CPU; the same
-    code Mosaic-compiles on TPU)."""
-
-    def test_vmem_operators_match_stencil3d(self):
-        from fib_tf_tpu.ops import stencil
-        from fib_tf_tpu.ops.pallas_volume import (
-            vmem_enforce_boundary3d,
-            vmem_laplace3d,
-        )
-
-        rng = np.random.default_rng(0)
-        x = jnp.asarray(rng.normal(size=(5, 12, 16)).astype(np.float32))
-        ph = stencil.add_hole_to_phase_field(None, 12, 16, 6, 8, 3)
-        pp = jnp.asarray(np.pad(np.asarray(ph, np.float32), 1,
-                                mode="reflect"))
-        np.testing.assert_allclose(
-            np.asarray(vmem_laplace3d(x)),
-            np.asarray(stencil3d.laplace3d(x)), rtol=1e-5, atol=1e-5,
-        )
-        np.testing.assert_allclose(
-            np.asarray(vmem_laplace3d(x, jnp.asarray(ph), dz_ratio=0.4)),
-            np.asarray(stencil3d.laplace3d(x, phase_padded=pp,
-                                           dz_ratio=0.4)),
-            rtol=1e-5, atol=1e-5,
-        )
-        ang = stencil3d.twist_angles(5, 0.3, 2.1)
-        fib = stencil3d.fiber_tensors(ang, 0.3)
-        fib3 = tuple(jnp.asarray(c.reshape(5, 1, 1)) for c in fib)
-        np.testing.assert_allclose(
-            np.asarray(vmem_laplace3d(x, jnp.asarray(ph), fiber=fib3)),
-            np.asarray(stencil3d.laplace3d(x, phase_padded=pp,
-                                           fiber=fib)),
-            rtol=1e-5, atol=1e-5,
-        )
-        np.testing.assert_array_equal(
-            np.asarray(vmem_enforce_boundary3d(x)),
-            np.asarray(stencil3d.enforce_boundary3d(x)),
-        )
-
-    @pytest.mark.parametrize("model_cls,extra,layout", [
-        (Fenton4v, {}, "flat"),
-        (Fenton4v, {}, "3d"),
-        (BeelerReuter, dict(cheby=True, skip=True, diff=0.809), "flat"),
-    ])
-    def test_step_matches_xla(self, model_cls, extra, layout):
-        from fib_tf_tpu.ops import stencil
-        from fib_tf_tpu.ops.pallas_volume import make_pallas_volume_step
-
-        m = model_cls(SimConfig(width=24, height=16, dt=0.05, **extra))
-        ph = stencil.add_hole_to_phase_field(None, 16, 24, 8, 12, 3)
-        st = {k: jnp.asarray(v) for k, v in volume_state(m, 4).items()}
-        geom = volume_geometry(ph, dz_ratio=0.5)
-        want = st
-        for _ in range(2):
-            want = m.step(want, geom)
-        pstep = make_pallas_volume_step(m, 4, phase=ph, dz_ratio=0.5,
-                                        layout=layout)
-        got = st
-        for _ in range(2):
-            got = pstep(got)
-        for k in want:
-            np.testing.assert_allclose(
-                np.asarray(got[k]), np.asarray(want[k]),
-                rtol=2e-5, atol=2e-5, err_msg=k,
-            )
-
-    def test_flat_layout_with_twist_matches_xla(self):
-        from fib_tf_tpu.ops.pallas_volume import make_pallas_volume_step
-
-        m = Fenton4v(SimConfig(width=24, height=16, dt=0.05))
-        ang = stencil3d.twist_angles(4, 0.3, 1.2)
-        fib = stencil3d.fiber_tensors(ang, 0.35)
-        st = {k: jnp.asarray(v) for k, v in volume_state(m, 4).items()}
-        geom = volume_geometry(fiber=fib)
-        want = m.step(st, geom)
-        got = make_pallas_volume_step(m, 4, fiber=fib)(st)
-        for k in want:
-            np.testing.assert_allclose(
-                np.asarray(got[k]), np.asarray(want[k]),
-                rtol=2e-5, atol=2e-5, err_msg=k,
-            )
-
-    def test_courtemanche_step_matches_xla(self):
-        from fib_tf_tpu.models.courtemanche import Courtemanche
-        from fib_tf_tpu.ops.pallas_volume import make_pallas_volume_step
-
-        m = Courtemanche(SimConfig(width=16, height=8, dt=0.02,
-                                   diff=0.809))
-        st = {k: jnp.asarray(v) for k, v in volume_state(m, 3).items()}
-        geom = volume_geometry()
-        want = m.step(st, geom)
-        got = make_pallas_volume_step(m, 3)(st)
-        for k in want:
-            np.testing.assert_allclose(
-                np.asarray(got[k]), np.asarray(want[k]),
-                rtol=2e-5, atol=2e-5, err_msg=k,
-            )
-
-    def test_run_volume_forced_kernel_matches(self):
-        m = Fenton4v(SimConfig(width=128, height=16, dt=0.05))
-        kw = dict(depth=4, n_outer=6,
-                  events=[VolumeEvent(step=2, loc="luq")],
-                  fiber_twist=1.0, fiber_ratio=0.4)
-        f_x, p_x, _ = run_volume(m, kernel="xla", **kw)
-        f_p, p_p, _ = run_volume(m, kernel="pallas", **kw)
-        for k in f_x:
-            np.testing.assert_allclose(f_p[k], f_x[k], rtol=1e-5,
-                                       atol=1e-5, err_msg=k)
-        np.testing.assert_allclose(p_p, p_x, atol=1e-6)
-
-    def test_unaligned_grid_padded_kernel_matches(self):
-        """Unaligned (H, W) volumes run the kernel on padded planes with
-        true-edge masking — no silent XLA fallback (the 3D analog of the
-        2D pad path, VERDICT r2 #3)."""
-        from fib_tf_tpu.ops import stencil
-
-        m = Fenton4v(SimConfig(width=22, height=14, dt=0.05))
-        ph = stencil.add_hole_to_phase_field(None, 14, 22, 7, 11, 3)
-        kw = dict(depth=5, n_outer=6, phase=ph, dz_ratio=0.7,
-                  fiber_twist=1.0, fiber_ratio=0.4, rotor_probe=True,
-                  events=[VolumeEvent(step=2, loc="luq")])
-        f_x, p_x, _ = run_volume(m, kernel="xla", **kw)
-        f_p, p_p, _ = run_volume(m, kernel="pallas", **kw)
-        for k in f_x:
-            assert f_p[k].shape == (5, 14, 22)
-            np.testing.assert_allclose(f_p[k], f_x[k], rtol=2e-5,
-                                       atol=1e-5, err_msg=k)
-        np.testing.assert_allclose(p_p["v"], p_x["v"], atol=1e-6)
-        np.testing.assert_array_equal(p_p["rotors"], p_x["rotors"])
-
-    def test_unaligned_frames_cropped(self):
-        m = Fenton4v(SimConfig(width=22, height=14, dt=0.05))
-        _, _, fr = run_volume(m, kernel="pallas", depth=5, n_outer=6,
-                              frames_every=3)
-        assert fr.shape == (2, 5, 14, 22)
-
-    def test_forced_kernel_rejections(self):
-        from jax.sharding import Mesh
-
-        m = Fenton4v(SimConfig(width=128, height=16, dt=0.05))
-        with pytest.raises(ValueError, match="single-chip"):
-            run_volume(m, depth=4, n_outer=1, kernel="pallas",
-                       mesh=Mesh(np.array(jax.devices()[:1]), ("z",)))
-        m2 = Fenton4v(SimConfig(width=128, height=16, dt=0.05,
-                                adaptive_dv=0.5))
-        with pytest.raises(ValueError, match="adaptive_dv"):
-            run_volume(m2, depth=4, n_outer=1, kernel="pallas")
-        with pytest.raises(ValueError, match="auto"):
-            run_volume(m, depth=4, n_outer=1, kernel="fused")
-
-
-class TestTiledVolumeKernel:
-    """Row-tiled temporally-blocked volume kernel
-    (ops/pallas_volume.make_tiled_volume_step) — the fused path for
-    volumes past the whole-volume kernel's Mosaic compile cap.  Each
-    row-tile block holds ALL z-slices, so z coupling is complete
-    in-block and only the row direction carries the temporal halo."""
-
-    def test_matches_xla_with_phase_fiber_dz(self):
-        from fib_tf_tpu.ops import stencil
-        from fib_tf_tpu.ops.pallas_volume import make_tiled_volume_step
-
-        m = Fenton4v(SimConfig(width=128, height=96, dt=0.05))
-        ph = stencil.add_hole_to_phase_field(None, 96, 128, 48, 64, 10)
-        ang = stencil3d.twist_angles(3, 0.3, 1.2)
-        fib = stencil3d.fiber_tensors(ang, 0.35)
-        st = {k: jnp.asarray(v) for k, v in volume_state(m, 3).items()}
-        geom = volume_geometry(ph, dz_ratio=0.7, fiber=fib)
-        want = st
-        # tile_rows=16 < halo (16): interior tiles load clamped windows
-        # at genuinely varying offsets
-        pstep = make_tiled_volume_step(m, 3, 16, phase=ph, dz_ratio=0.7,
-                                       fiber=fib)
-        got = st
-        for _ in range(3):
-            want = m.step(want, geom)
-            got = pstep(got)
-        for k in want:
-            np.testing.assert_allclose(
-                np.asarray(got[k]), np.asarray(want[k]),
-                rtol=2e-5, atol=2e-5, err_msg=k,
-            )
-
-    def test_br_skip_cheby_matches_xla(self):
-        from fib_tf_tpu.ops.pallas_volume import make_tiled_volume_step
-
-        b = BeelerReuter(SimConfig(width=128, height=64, dt=0.05,
-                                   diff=0.809, cheby=True, skip=True))
-        st = {k: jnp.asarray(v) for k, v in volume_state(b, 4).items()}
-        want = b.step(st, volume_geometry())
-        got = make_tiled_volume_step(b, 4, 32)(st)
-        for k in want:
-            np.testing.assert_allclose(
-                np.asarray(got[k]), np.asarray(want[k]),
-                rtol=2e-5, atol=2e-5, err_msg=k,
-            )
-
-    def test_validation(self):
-        from fib_tf_tpu.ops.pallas_volume import make_tiled_volume_step
-
-        m_unaligned = Fenton4v(SimConfig(width=100, height=64, dt=0.05))
-        with pytest.raises(ValueError, match="aligned"):
-            make_tiled_volume_step(m_unaligned, 4, 16)
-        m = Fenton4v(SimConfig(width=128, height=64, dt=0.05))
-        with pytest.raises(ValueError, match="multiple of 8"):
-            make_tiled_volume_step(m, 4, 24)
-        with pytest.raises(ValueError, match="tile_rows"):
-            make_tiled_volume_step(m, 4, 64)  # ext 96 > h 64
-
-    def test_pick_tile_rows(self):
-        from fib_tf_tpu.engine.volume import pick_volume_tile_rows
-
-        # fenton K=16: 8x256x512 -> largest divisor of 256 with
-        # 8*(t+32)*512 <= 768*8*128 is t=128 (ext 160 -> 655k cells)
-        m = Fenton4v(SimConfig(width=512, height=256, dt=0.05))
-        assert pick_volume_tile_rows(m, 8) == 128
-        # unaligned -> None
-        mu = Fenton4v(SimConfig(width=500, height=256, dt=0.05))
-        assert pick_volume_tile_rows(mu, 8) is None
-        # depth so large no block fits the compile band -> None
-        assert pick_volume_tile_rows(m, 400) is None
-
-    def test_auto_selects_tiled_past_cap(self, monkeypatch):
-        """Engine selection: past the whole-volume cap an aligned
-        HBM-bound model picks 'tiled' under 'auto' (cap shrunk so a
-        CPU-sized volume counts as big), and the run matches XLA."""
-        import fib_tf_tpu.engine.volume as ev
-        import fib_tf_tpu.ops.pallas_volume as pv
-
-        m = Fenton4v(SimConfig(width=128, height=96, dt=0.05))
-        monkeypatch.setattr(ev, "VOLUME_KERNEL_CELLS_MAX", 40000)
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        assert ev._use_volume_kernel(m, 4, None, "auto") == "tiled"
-        # court stays XLA past the cap (compute-bound; tiling loses)
-        from fib_tf_tpu.models.courtemanche import Courtemanche
-
-        c = Courtemanche(SimConfig(width=128, height=96, dt=0.02,
-                                   diff=0.809))
-        assert ev._use_volume_kernel(c, 4, None, "auto") is None
-
-        # end-to-end through run_volume (kernel forced to interpret on
-        # this CPU host)
-        orig = pv.make_tiled_volume_step
-        monkeypatch.setattr(
-            pv, "make_tiled_volume_step",
-            lambda *a, **k: orig(*a, **{**k, "interpret": True}),
-        )
-        f_t, p_t, _ = run_volume(m, depth=4, n_outer=2, kernel="auto")
-        monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-        f_x, p_x, _ = run_volume(m, depth=4, n_outer=2, kernel="xla")
-        np.testing.assert_allclose(p_t, p_x, rtol=1e-5, atol=1e-6)
-        for k in f_x:
-            np.testing.assert_allclose(
-                f_t[k], f_x[k], rtol=2e-5, atol=2e-5, err_msg=k,
-            )
-
-
 class TestWideHaloVolume:
     """The wide-halo shard_map volume path (parallel/volume_spmd.py):
     K = dt_per_step ghost z-slices per outer-step exchange, per-shard
-    substep group as XLA or the fused volume block kernel.  Must match
-    the unsharded run to float noise."""
+    fused substep group on the extended block.  Must match the unsharded
+    run to float noise."""
 
     def _mesh(self, n):
         from jax.sharding import Mesh
@@ -548,8 +289,7 @@ class TestWideHaloVolume:
             pytest.skip("needs the 8-device virtual mesh")
         return Mesh(np.array(devs[:n]), ("z",))
 
-    @pytest.mark.parametrize("kern", ["xla", "pallas"])
-    def test_fenton_matches_unsharded(self, kern):
+    def test_fenton_matches_unsharded(self):
         from fib_tf_tpu.ops import stencil
 
         mesh = self._mesh(2)
@@ -560,8 +300,7 @@ class TestWideHaloVolume:
                   events=[VolumeEvent(step=5, loc="luq")],
                   electrodes=[(-3.0, 12.0, 12.0), (24.0, 8.0, 8.0)])
         f_u, p_u, _ = run_volume(m, **kw)
-        f_w, p_w, _ = run_volume(m, mesh=mesh, wide_halo=True,
-                                 kernel=kern, **kw)
+        f_w, p_w, _ = run_volume(m, mesh=mesh, wide_halo=True, **kw)
         for k in f_u:
             np.testing.assert_allclose(f_w[k], f_u[k], rtol=2e-5,
                                        atol=1e-6, err_msg=k)
@@ -581,15 +320,13 @@ class TestWideHaloVolume:
         kw = dict(depth=40, n_outer=6,
                   events=[VolumeEvent(step=2, loc="luq", z1=20)])
         f_u, p_u, _ = run_volume(m, **kw)
-        f_w, p_w, _ = run_volume(m, mesh=mesh, wide_halo=True,
-                                 kernel="xla", **kw)
+        f_w, p_w, _ = run_volume(m, mesh=mesh, wide_halo=True, **kw)
         for k in f_u:
             np.testing.assert_allclose(f_w[k], f_u[k], rtol=2e-5,
                                        atol=1e-6, err_msg=k)
         np.testing.assert_allclose(p_w, p_u, atol=1e-5)
 
-    @pytest.mark.parametrize("kern", ["xla", "pallas"])
-    def test_halo_k_cadence_matches_unsharded(self, kern):
+    def test_halo_k_cadence_matches_unsharded(self):
         """halo_k=2 lets fenton (K=10) run depth 16 over 8 shards — the
         exact configuration the default cadence rejects."""
         mesh = self._mesh(8)
@@ -598,7 +335,7 @@ class TestWideHaloVolume:
                   events=[VolumeEvent(step=4, loc="luq")])
         f_u, p_u, _ = run_volume(m, **kw)
         f_w, p_w, _ = run_volume(m, mesh=mesh, wide_halo=True, halo_k=2,
-                                 kernel=kern, **kw)
+                                 **kw)
         for k in f_u:
             np.testing.assert_allclose(f_w[k], f_u[k], rtol=2e-5,
                                        atol=1e-6, err_msg=k)
@@ -611,8 +348,7 @@ class TestWideHaloVolume:
         kw = dict(depth=8, n_outer=6,
                   events=[VolumeEvent(step=2, loc="luq")])
         f_u, _, _ = run_volume(mb, **kw)
-        f_w, _, _ = run_volume(mb, mesh=mesh, wide_halo=True, halo_k=1,
-                               kernel="xla", **kw)
+        f_w, _, _ = run_volume(mb, mesh=mesh, wide_halo=True, halo_k=1, **kw)
         for k in f_u:
             np.testing.assert_allclose(f_w[k], f_u[k], rtol=2e-5,
                                        atol=1e-6, err_msg=k)
@@ -713,18 +449,6 @@ class TestPseudoECG:
         np.testing.assert_allclose(e[:, 0], e[:, 1], rtol=1e-4,
                                    atol=1e-6)
 
-    def test_padded_kernel_matches_xla(self):
-        # unaligned (H, W): the kernel path samples the true-size crop
-        # of the padded planes
-        m = Fenton4v(SimConfig(width=22, height=14, dt=0.05))
-        kw = dict(depth=5, n_outer=6, dz_ratio=0.7,
-                  events=[VolumeEvent(step=2, loc="luq")],
-                  electrodes=[(-4.0, 7.0, 11.0), (2.5, -3.0, 5.0)])
-        _, p_x, _ = run_volume(m, kernel="xla", **kw)
-        _, p_p, _ = run_volume(m, kernel="pallas", **kw)
-        np.testing.assert_allclose(p_p["ecg"], p_x["ecg"], rtol=1e-4,
-                                   atol=1e-5)
-
     def test_sharded_matches_unsharded(self):
         from jax.sharding import Mesh
 
@@ -756,8 +480,7 @@ class TestPseudoECG:
                   events=[VolumeEvent(step=2, loc="luq")],
                   electrodes=[(-3.0, 12.0, 12.0)])
         _, p_u, _ = run_volume(m, **kw)
-        _, p_w, _ = run_volume(m, mesh=mesh, wide_halo=True,
-                               kernel="xla", **kw)
+        _, p_w, _ = run_volume(m, mesh=mesh, wide_halo=True, **kw)
         np.testing.assert_allclose(p_w["ecg"], p_u["ecg"], rtol=1e-4,
                                    atol=1e-5)
 
@@ -850,7 +573,7 @@ class TestFullTensorAnisotropy:
                 np.testing.assert_allclose(f_s[k], f_u[k], rtol=2e-5,
                                            atol=1e-6, err_msg=k)
 
-    def test_validation_and_kernel_rejection(self):
+    def test_validation(self):
         from jax.sharding import Mesh
 
         m = Fenton4v(SimConfig(width=16, height=16, dt=0.05))
@@ -859,9 +582,6 @@ class TestFullTensorAnisotropy:
         with pytest.raises(ValueError, match="dz_ratio"):
             run_volume(m, depth=4, n_outer=1, fiber_elevation=0.3,
                        fiber_ratio=0.4, dz_ratio=0.5)
-        with pytest.raises(ValueError, match="XLA path"):
-            run_volume(m, depth=4, n_outer=1, fiber_elevation=0.3,
-                       fiber_ratio=0.4, kernel="pallas")
         devs = jax.devices()
         if len(devs) >= 8:
             mesh = Mesh(np.array(devs), ("z",))

@@ -1,16 +1,12 @@
 #!/usr/bin/env python
-"""Measure the shard_map chunk's per-shard cost on a 1-DEVICE TPU mesh
-(VERDICT r2 #1): the identical shard_map/ppermute/block-kernel program
-runs with zero-distance halos, so the number isolates the COMPUTE side of
-the multi-chip crossover on the one real chip this machine has.
+"""Time the shard_map chunk (parallel/spmd.py) on a row mesh of
+`--devices` devices: per-substep 1-row halos or one K-row exchange per
+outer step.  With one device the halos travel zero distance, so the
+number is the per-shard compute of the sharded path; compare it with
+tools/kernel_bench.py on the same card.
 
-  python tools/spmd_bench.py br  --flavor per-substep|wide-xla|wide-kernel
-  python tools/spmd_bench.py court --flavor wide-kernel --height 1024 --width 512
-
-Compare against the single-chip numbers from tools/kernel_bench.py
-(whole-grid kernel / plain XLA).  The ICI side of the crossover is the
-K-row halo message (K = dt_per_step rows x W x 4 B per neighbor per outer
-step), which is microseconds on v5e ICI — see docs/OPTIMIZATIONS.md §9.
+  python tools/spmd_bench.py br --flavor wide --devices 4
+  python tools/spmd_bench.py court --flavor per-substep --height 1024
 """
 
 import argparse
@@ -20,7 +16,6 @@ import sys as _sys
 _sys.path.insert(0, _os.path.join(_os.path.dirname(_os.path.abspath(__file__)), ".."))
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 
 
@@ -28,8 +23,9 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument("model", choices=["fenton", "br", "court", "court_ultra",
                                      "ms", "lr1", "tp06"])
-    p.add_argument("--flavor", default="wide-kernel",
-                   choices=["per-substep", "wide-xla", "wide-kernel"])
+    p.add_argument("--flavor", default="wide",
+                   choices=["per-substep", "wide"])
+    p.add_argument("--devices", type=int, default=1)
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--height", type=int, default=512)
     p.add_argument("--outer", type=int, default=1000,
@@ -45,9 +41,10 @@ def main():
 
     from fib_tf_tpu.config import SimConfig
     from fib_tf_tpu.models import MODEL_REGISTRY
+    from fib_tf_tpu.parallel import shard_state
     from fib_tf_tpu.parallel.spmd import make_spmd_chunk
     from fib_tf_tpu.utils import cache
-    from fib_tf_tpu.utils.profiling import sync, time_fn
+    from fib_tf_tpu.utils.profiling import time_fn
 
     cache.enable()
     # per-model recommended dt (0.1 for the reference models; the stiff
@@ -57,33 +54,15 @@ def main():
                     diff=0.809, cheby=args.cheby, skip=args.skip,
                     ultra_slow=(args.model == "court_ultra"))
     model = MODEL_REGISTRY[args.model](cfg)
-    mesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1), ("rows",))
-
-    wide = args.flavor != "per-substep"
-    use_kernel = args.flavor == "wide-kernel"
-    chunk1 = make_spmd_chunk(model, mesh, args.outer, wide_halo=wide,
-                             use_kernel=use_kernel)
-    chunk2 = make_spmd_chunk(model, mesh, 2 * args.outer, wide_halo=wide,
-                             use_kernel=use_kernel)
-
-    state = {k: jnp.asarray(v) for k, v in model.initial_state().items()}
-
-    def run1(s):
-        return chunk1(s)[0]
-
-    def run2(s):
-        return chunk2(s)[0]
-
-    print("compiling...", flush=True)
-    sync(run1(state))
-    sync(run2(state))
-    t1 = time_fn(run1, state, iters=args.iters, warmup=1)
-    t2 = time_fn(run2, state, iters=args.iters, warmup=1)
+    mesh = Mesh(np.asarray(jax.devices()[:args.devices]), ("rows",))
+    chunk = make_spmd_chunk(model, mesh, args.outer,
+                            wide_halo=args.flavor == "wide")
+    state = shard_state(model.initial_state(), mesh)
+    t = time_fn(lambda s: chunk(s)[0], state, iters=args.iters, warmup=1)
     substeps = args.outer * model.dt_per_step
-    us = (t2 - t1) / substeps * 1e6
-    print(f"{args.model} spmd[{args.flavor}] 1-dev mesh @ "
-          f"{args.height}x{args.width}: {us:.1f} us/substep "
-          f"(t1={t1*1e3:.1f} ms, t2={t2*1e3:.1f} ms, {substeps} substeps)")
+    print(f"{args.model} spmd[{args.flavor}] {args.devices}-device mesh "
+          f"({jax.devices()[0].device_kind}) @ {args.height}x{args.width}: "
+          f"{t / substeps * 1e6:.1f} us/substep ({substeps} substeps)")
 
 
 if __name__ == "__main__":
